@@ -1,0 +1,749 @@
+#!/usr/bin/env python3
+"""Run the PyTorch port (`ft_mpc_torch`) on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py              # from the root of a checkout
+    python3 chip_smoke.py --profile out.txt   # also trace two steps
+
+1. Builds the CUDA kernels of `ft_mpc_torch/csrc/` with nvcc (one process
+   per source, all at once) into `build/`.
+2. Drives the main path: the batched condensed control step at the bench's
+   size (`bench.py`: B=2048 scenarios tiled from the 32-pattern bank,
+   horizon 15, 2 SQP iterations, 60 ADMM iterations, 3 Newton steps,
+   worst-256 cleanup at 600x3), `init_warmstart_batch` and then
+   WARMUP + STEPS = 10 + 120 warm-chained `get_control_batch` steps, as
+   bench.py chains them.  The kernels' launch counters are zeroed just
+   before and read just after.
+3. Holds each kernel against its plain PyTorch version on the card, at the
+   main path's shapes, and times both (CUDA events around back-to-back
+   calls, median of 3 rounds).  The allocation kernel is also held at its
+   hull test's threshold and on the main path's own wrenches.
+4. Compares one whole step on the card with the port's CPU run on 64 rows,
+   from states near the terminal sets and from the bench's states.
+
+Prints the card's name and power limit, one JSON line with every kernel's
+numbers, and as its last line {"ok": true, "device": {...}}.  Exits with a
+non-zero code and prints no result without a CUDA device, or when the
+package is not beside it; any failed check fails the run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parent
+
+# H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
+# cores, and HBM3 bandwidth.  A card set below 700 W runs slower under load.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+Q_DIAG = [1, 1, 1, 1, 1, 1, 2, 2, 2]  # DEFAULT_TUNING of the JAX package
+R_DIAG = [0.1, 0.1, 0.1, 0.01, 0.01, 0.01]
+HORIZON = 15
+BATCH = 2048
+PERIOD_MS = 100.0  # the controller's 0.1 s control period
+GAP_GATE = 0.4  # bench.py's max_term_gap gate
+REFERENCE_GAP_ROWS = {209, 828, 1204, 1400, 1713}  # bench.py's pinned set
+
+# Tolerances of each kernel against its plain version on the same inputs
+# (both float32 on the card; they differ only in summation order):
+#   condense: relative to max|S| -- a 15-step recursion of 13-term sums;
+#   admm: relative to each output's scale -- 60 (or 600) iterations of a
+#     map whose x-update multiplies by K^-1 (condition ~1e5) amplify the
+#     per-iteration rounding difference (5.5e-5 seen at 600 iterations on
+#     an H100, so 5e-4 leaves a 10x margin);
+#   alloc: u atol 2e-3 N, the JAX suite's own class for its fp32 kernel
+#     (tests/test_lanes_alloc.py:75-78), on seeded demands;
+#   alloc on the main path's wrenches (see check_alloc_main): u atol 1e-2 N
+#     on the rows where both took the same branches, and a branch choice may
+#     differ only on rows that sit on the hull test's threshold or the
+#     fallback threshold, on at most 1/16 of the rows.  On an H100 these read
+#     2.8e-3 N and 44 of 2048 rows; the control, the plain version in float32
+#     against itself in float64, reads 1.8e-3 N and 109 rows, so the kernel
+#     sits as close to float64 as the plain float32 arithmetic does.
+TOL_CONDENSE = 1e-5
+TOL_ADMM = 5e-4
+TOL_ALLOC = 2e-3
+TOL_ALLOC_MAIN = 1e-2
+MAX_FLIP_SHARE = 1 / 16
+TOL_STEP_U = 2e-2  # whole step, card vs CPU: tests/test_lanes.py:174-178
+
+HULL_MARGIN = 1e-7  # the hull test: hull_A w_total <= hull_b + 1e-7
+FALLBACK_EQ_ERR = 1e-2  # the fallback replaces u only above this equality error
+U32 = 2.0 ** -24  # float32 unit roundoff
+WARMUP = 10  # bench.py: warm-up steps, then timed steps, all chained
+STEPS = 120
+
+
+def log(*args) -> None:
+    print(*args, flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+class Ctx:
+    """Everything the main path needs, on one device and dtype."""
+
+    def __init__(self, device, dtype, B: int, x0=None):
+        from ft_mpc_torch.controllers import spiraling as sp
+        from ft_mpc_torch.geometry.scenario import load_bank_snapshot, take_rows, tile_bank
+        from ft_mpc_torch.ops.dynamics import BodyParams
+        from ft_mpc_torch.solvers.mpc_qp import StructuredADMMConfig
+        from ft_mpc_torch.utils.trajectory import (
+            generate_trajectory,
+            prepare_center_trajectory,
+        )
+
+        self.sp, self.device = sp, device
+        bank32 = load_bank_snapshot(device=device, dtype=dtype)
+        bank = tile_bank(bank32, -(-B // 32))
+        self.bank = take_rows(bank, torch.arange(B, device=device))
+        self.params = BodyParams.default(0.1, dtype=dtype, device=device)
+        self.weights = sp.MPCWeights.from_diagonals(Q_DIAG, R_DIAG, dtype=dtype,
+                                                    device=device)
+        # bench.py's deployed config
+        self.cfg = sp.MPCConfig(
+            horizon=HORIZON, sqp_iters=2,
+            admm=StructuredADMMConfig(iters=60, phases=1, rho=50.0, adapt_clip=1.5),
+            newton_iters=3, cleanup_iters=600, cleanup_k=256, cleanup_phases=3,
+        )
+        traj = generate_trajectory("hover", 0.1, 5)
+        x_ref, u_ref = prepare_center_trajectory(
+            traj, np.array([0.0, 0.0, 0.6]), 16.8, 0.1, HORIZON + 1
+        )
+        t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+        self.x_ref, self.u_ref = t(x_ref[: HORIZON + 1]), t(u_ref[: HORIZON + 1])
+        self.x0 = t(bench_x0(B) if x0 is None else x0)
+
+    def init(self):
+        c0 = self.sp.robot_to_center(self.bank.r, self.x0)
+        return self.sp.init_warmstart_batch(self.params, self.bank, self.weights,
+                                            self.cfg, c0, self.x_ref, self.u_ref)
+
+    def step(self, warm):
+        return self.sp.get_control_batch(self.params, self.bank, self.weights, self.cfg,
+                                         self.x0, self.x_ref, self.u_ref, warm)
+
+
+def bench_x0(B: int) -> np.ndarray:
+    """bench.py:113-120 exactly: seeded tumbling robot states, float32."""
+    rng = np.random.default_rng(0)
+    x0 = np.zeros((B, 13), dtype=np.float32)
+    x0[:, 0:3] = rng.uniform(-1, 1, (B, 3))
+    x0[:, 3:6] = rng.uniform(-0.3, 0.3, (B, 3))
+    q = rng.standard_normal((B, 4))
+    x0[:, 6:10] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    x0[:, 10:13] = rng.uniform(-0.3, 0.3, (B, 3))
+    return x0
+
+
+def gentle_x0(B: int) -> np.ndarray:
+    """States near the certified terminal sets (tests/test_lanes.py:139-149),
+    where the JAX suite compares its whole step across implementations."""
+    rng = np.random.default_rng(0)
+    x0 = np.zeros((B, 13))
+    x0[:, 0:3] = rng.uniform(-0.4, 0.4, (B, 3))
+    x0[:, 3:6] = rng.uniform(-0.15, 0.15, (B, 3))
+    q = rng.standard_normal((B, 4))
+    x0[:, 6:10] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    x0[:, 10:13] = rng.uniform(-0.15, 0.15, (B, 3))
+    return x0
+
+
+def sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def time_ms(fn, reps: int, device, rounds: int = 3) -> float:
+    """ms per call: the median over `rounds` of `reps` back-to-back calls
+    between two CUDA events (host clock on the CPU), after one warm-up."""
+    fn()
+    sync(device)
+    times = []
+    for _ in range(rounds):
+        if device.type == "cuda":
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(reps):
+                fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / reps)
+        else:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            times.append(1e3 * (time.perf_counter() - t0) / reps)
+    return statistics.median(times)
+
+
+def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def counters():
+    from ft_mpc_torch.solvers import lanes_alloc, lanes_condense, lanes_qp
+
+    return {
+        "condense_lanes": lanes_condense.condense_lanes,
+        "admm_lanes": lanes_qp.admm_lanes,
+        "allocate_thrusters_lanes": lanes_alloc.allocate_thrusters_lanes,
+    }
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def build_kernels() -> float:
+    from ft_mpc_torch import kernels
+
+    t0 = time.perf_counter()
+    logs = kernels.build()
+    build_s = time.perf_counter() - t0
+    for name in kernels.SOURCES:
+        log_text = logs.get(name)
+        if log_text is None:
+            log_text = kernels.lib_path(name).with_suffix(".log").read_text()
+        usage = [ln.strip() for ln in log_text.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        log(f"ptxas {name}: " + " | ".join(usage))
+    return build_s
+
+
+def drive_main_path(ctx: Ctx):
+    """init + WARMUP + STEPS chained steps; launch counts zeroed before, read after."""
+    from ft_mpc_torch.solvers.lanes_qp import newton_kinv
+
+    for fn in counters().values():
+        fn.launches = 0
+    newton_kinv.rescues = 0
+    t0 = time.perf_counter()
+    warm = ctx.init()
+    sync(ctx.device)
+    init_ms = 1e3 * (time.perf_counter() - t0)
+    out = None
+    for _ in range(WARMUP):
+        out = ctx.step(warm)
+        warm = out.warm
+    sync(ctx.device)
+    samples = []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        out = ctx.step(warm)
+        sync(ctx.device)
+        samples.append(1e3 * (time.perf_counter() - t0))
+        warm = out.warm
+    launches = {name: fn.launches for name, fn in counters().items()}
+    rescues = newton_kinv.rescues
+    samples = np.asarray(samples)
+    windows = samples[: len(samples) // 10 * 10].reshape(-1, 10).mean(axis=1)
+
+    u = out.u_phys
+    gaps = out.info.term_gap.double().cpu().numpy()
+    gap_rows = sorted(int(r) for r in np.flatnonzero(gaps > 1e-3))
+    res = {
+        "init_ms": init_ms,
+        "p50_ms": float(np.percentile(samples, 50)),
+        "p99_ms": float(np.percentile(samples, 99)),
+        "window_p50_ms": float(np.percentile(windows, 50)) if len(windows) else None,
+        "steps": WARMUP + STEPS,
+        "launches": launches,
+        "newton_rescues": rescues,
+        "slowest_steps_ms": {int(i): float(samples[i])
+                             for i in np.argsort(samples)[::-1][:5]},
+        "max_r_prim": float(out.info.r_prim.max()),
+        "max_term_gap": float(np.nanmax(gaps)),
+        "gap_rows": gap_rows,
+        "finite": bool(torch.isfinite(u).all() and torch.isfinite(out.wrench).all()
+                       and torch.isfinite(out.warm.X).all()),
+        "u_shape": tuple(u.shape),
+    }
+    res["solves_per_s"] = len(ctx.bank.r) * 1e3 / res["p50_ms"]
+    return res, warm, out
+
+
+def check_condense(ctx: Ctx, warm) -> dict:
+    """Kernel 1 at the main path's shapes: stage jacobians of the final warm."""
+    from ft_mpc_torch.solvers.lanes_condense import _condense_cuda, condense_plain
+
+    sp = ctx.sp
+    X = torch.cat([sp.robot_to_center(ctx.bank.r, ctx.x0)[:, None], warm.X[:, 1:]], dim=1)
+    A, Bm, d = sp._linearize(ctx.params, ctx.bank, ctx.cfg, X, warm.U, ctx.u_ref)
+    A, Bm, d = (t.float().contiguous() for t in (A, Bm, d))
+    S, phi = _condense_cuda(A, Bm, d)
+    S0, phi0 = condense_plain(A, Bm, d)
+    sync(ctx.device)
+    scale = max(1.0, float(S0.abs().max()), float(phi0.abs().max()))
+    err = max(float((S - S0).abs().max()), float((phi - phi0).abs().max()))
+    B, Nt = A.shape[:2]
+    n = 6 * Nt
+    # recursion as computed: 13x13 @ 13xn per stage for S, 13x13 for phi
+    flops = B * Nt * (2 * 13 * 13 * n + 2 * 13 * 13 + 13 + 13 * 6)
+    b_ms, b_by = bound_ms(nbytes(A, Bm, d, S, phi), flops)
+    return {
+        "name": "condense_lanes", "route": "cuda",
+        "source": "ft_mpc_torch/csrc/condense.cu",
+        "replaces": "ft_mpc_tpu/solvers/lanes_condense.py:38",
+        "max_abs_err": err, "tol": TOL_CONDENSE * scale,
+        "ms": time_ms(lambda: _condense_cuda(A, Bm, d), 20, ctx.device),
+        "plain_ms": time_ms(lambda: condense_plain(A, Bm, d), 3, ctx.device),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": f"B={B} Nt={Nt}",
+    }
+
+
+def admm_inputs(ctx: Ctx, warm, weights, rows=None):
+    """The QP of the final warm (as the main path assembles it) and its exact
+    inverse metric, float32, optionally restricted to `rows`."""
+    from ft_mpc_torch.solvers.lanes_qp import build_K, exact_kinv
+
+    sp = ctx.sp
+    bank = ctx.bank if rows is None else sp.take_rows(ctx.bank, rows)
+    sel = (lambda t: t) if rows is None else (lambda t: t[rows])
+    x_ref = sp._per_scenario_ref(bank, ctx.x_ref, len(bank.r))
+    geo = sp._masked_geometry(bank)
+    c0 = sp.robot_to_center(bank.r, sel(ctx.x0))
+    X = torch.cat([c0[:, None], sel(warm.X)[:, 1:]], dim=1)
+    U = sel(warm.U)
+    qp, _, _, _ = sp._assemble_condensed_batch(ctx.params, bank, weights, ctx.cfg, X, U,
+                                               x_ref, ctx.u_ref, *geo)
+    yt = sel(warm.y_term)
+    if yt.shape != qp.h_term.shape:  # extra dense rows start from zero duals
+        yt = torch.zeros_like(qp.h_term)
+    rho = sel(warm.rho).float()
+    K, _ = build_K(qp, rho, ctx.cfg.admm.sigma)
+    kinv = exact_kinv(K)
+    f = lambda t: t.float().contiguous()
+    zh0 = f(torch.clamp(qp.h_hull, max=0.0))
+    zt0 = f(torch.clamp(qp.h_term, max=0.0))
+    x0 = torch.zeros_like(f(qp.g))
+    return [f(kinv), f(qp.hull_A), f(qp.h_hull), f(qp.G_term), f(qp.h_term), f(qp.g),
+            x0, zh0, zt0, f(sel(warm.y_hull)), f(yt), f(rho)]
+
+
+def admm_flops(B, Nt, F, T, iters) -> float:
+    n = 6 * Nt
+    per_iter = (2 * n * F + 2 * n * T + 2 * n * n  # rhs, K^-1 matvec
+                + 2 * Nt * F * 6 + 2 * T * n        # hull and dense rows of x~
+                + 12 * (Nt * F + T) + 6 * n)        # projections, duals, relaxation
+    return float(B) * iters * per_iter
+
+
+def check_admm(ctx: Ctx, args, iters, label, reps=10) -> dict:
+    from ft_mpc_torch.solvers.lanes_qp import _admm_cuda, admm_plain
+
+    c = ctx.cfg.admm
+    run = lambda: _admm_cuda(*args, c.sigma, c.alpha, iters, c.elastic_y_max)
+    plain = lambda: admm_plain(*args, c.sigma, c.alpha, iters, c.elastic_y_max)
+    out, ref = run(), plain()
+    sync(ctx.device)
+    err = 0.0
+    rel = 0.0
+    for o, r in zip(out, ref):  # x, zh, zt, yh, yt, each against its own scale
+        e = float((o - r).abs().max())
+        s = max(1.0, float(r.abs().max()))
+        err, rel = max(err, e), max(rel, e / s)
+    B, Nt, F = args[2].shape
+    T = args[4].shape[1]
+    b_ms, b_by = bound_ms(nbytes(*args, *out), admm_flops(B, Nt, F, T, iters))
+    return {
+        "name": "admm_lanes", "route": "cuda", "source": "ft_mpc_torch/csrc/admm.cu",
+        "replaces": "ft_mpc_tpu/solvers/lanes_qp.py:181",
+        "max_abs_err": err, "max_rel_err": rel, "tol_rel": TOL_ADMM,
+        "ms": time_ms(run, reps, ctx.device),
+        "plain_ms": time_ms(plain, 1, ctx.device),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": f"{label}: B={B} Nt={Nt} F={F} T={T} iters={iters}",
+    }
+
+
+def alloc_flops(B, F, fista, admm) -> float:
+    per = (12 * F                       # hull test
+           + fista * (4 * 96 + 6 * 16)  # FISTA: G eta, G^T r, clip and momentum
+           + 2 * 6 * 6 * 16 * 3 + 2 * 700  # two capacitance matrices, two 6x6 GJ
+           + admm * (4 * 192 + 72 + 12 * 16 + 6 * 6)  # ADMM Woodbury steps
+           + 3 * 192 + 72)              # polish and residuals
+    return float(B) * per
+
+
+ALLOC_HYPER = (60, 40, 1.0, 1e3, 1e-6, 1.6)  # allocate_thrusters_lanes defaults
+
+
+def alloc_args(ctx: Ctx, demand) -> list:
+    """The allocation kernel's float32 inputs on the main path's bank rows,
+    as `allocate_thrusters_lanes` prepares them, for wrench commands `demand`."""
+    from ft_mpc_torch.solvers.lanes_alloc import _BIG
+
+    b, p = ctx.bank, ctx.params
+    f = lambda t: torch.as_tensor(t, device=ctx.device).float().contiguous()
+    hb = torch.where(b.hull_mask > 0.5, b.hull_b, _BIG)
+    return [f(p.D), f(demand), f(b.faulty_force_gen), f(b.u_ub),
+            f(b.hull_A * b.hull_mask[:, :, None]), f(hb), f(b.gen_G), f(b.gen_c),
+            f(1.0 / torch.clamp(b.gen_L.float(), min=1e-12)),
+            f(p.max_thrust.float().expand(len(hb)))]
+
+
+def hull_slack(hA, hb, w, ff):
+    """The allocation's hull test in float64 on its float32 inputs.
+
+    Per facet: the slack hull_A (w + ff) - hull_b - margin (> 0 fails the
+    test), and a bound on the error of any float32 evaluation of it -- w + ff
+    rounded, a 6-term dot product, hull_b + margin rounded: 8 unit roundoffs
+    of the terms' magnitudes.
+    """
+    hA, hb = hA.double(), hb.double()
+    wt = w.double() + ff.double()
+    slack = torch.einsum("bfi,bi->bf", hA, wt) - hb - HULL_MARGIN
+    band = 8 * U32 * (torch.einsum("bfi,bi->bf", hA.abs(), wt.abs()) + hb.abs())
+    return slack, band
+
+
+def hull_truth(hA, hb, w, ff):
+    """Per row: whether the exact hull test clips, and whether the row sits on
+    its threshold (a float32 evaluation may then decide either way)."""
+    slack, band = hull_slack(hA, hb, w, ff)
+    surely_out = (slack > band).any(dim=1)
+    surely_in = (slack < -band).all(dim=1)
+    return (slack > 0).any(dim=1), ~(surely_out | surely_in)
+
+
+def facet_demands(hA, hb, G, c, ff, rng) -> torch.Tensor:
+    """Wrench commands (float64) whose hull test lies two error bounds inside
+    (even rows) or outside (odd rows) the margin: on a random ray from the
+    centre of the attainable zonotope, at the first facet the ray crosses."""
+    hA, hb, G, c, ff = (t.double() for t in (hA, hb, G, c, ff))
+    B = hb.shape[0]
+    centre = c + 0.5 * G.sum(dim=-1)
+    s0 = torch.einsum("bfi,bi->bf", hA, centre) - hb - HULL_MARGIN
+    if not bool((s0 < 0).all()):
+        raise ValueError("facet_demands: a zonotope centre fails its own hull test")
+    ray = torch.as_tensor(rng.standard_normal((B, 6)), dtype=torch.float64,
+                          device=hb.device)
+    rate = torch.einsum("bfi,bi->bf", hA, ray)
+    t_hit, facet = torch.where(rate > 0, -s0 / rate, torch.inf).min(dim=1)
+    on = centre + t_hit[:, None] * ray
+    _, band = hull_slack(hA, hb, on - ff, ff)
+    rows = torch.arange(B, device=hb.device)
+    side = torch.where(rows % 2 == 0, -1.0, 1.0).double()
+    t = t_hit + side * 2.0 * band[rows, facet] / rate[rows, facet]
+    return centre + t[:, None] * ray - ff
+
+
+def check_alloc(ctx: Ctx) -> dict:
+    """Kernel 3 on the main path's bank rows (B=2048, F=32) with seeded wrench
+    demands of +-0.5: about a quarter are clipped, a few take the fallback.
+    Both branch choices (hull test, fallback) must be equal, u within
+    TOL_ALLOC.  These demands stay clear of every branch threshold."""
+    from ft_mpc_torch.solvers.lanes_alloc import _alloc_cuda, alloc_plain
+
+    rng = np.random.default_rng(1)
+    B = len(ctx.bank.r)
+    args = alloc_args(ctx, rng.uniform(-0.5, 0.5, (B, 6)))
+    got, ref = _alloc_cuda(*args, *ALLOC_HYPER), alloc_plain(*args, *ALLOC_HYPER)
+    sync(ctx.device)
+    F = args[5].shape[1]
+    b_ms, b_by = bound_ms(nbytes(*args, *got), alloc_flops(B, F, 60, 40))
+    return {
+        "name": "allocate_thrusters_lanes", "route": "cuda",
+        "source": "ft_mpc_torch/csrc/alloc.cu",
+        "replaces": "ft_mpc_tpu/solvers/lanes_alloc.py:67",
+        "max_abs_err": float((got[0] - ref[0]).abs().max()), "tol": TOL_ALLOC,
+        "branches_equal": bool(torch.equal(got[2][:, :2], ref[2][:, :2])),
+        "ms": time_ms(lambda: _alloc_cuda(*args, *ALLOC_HYPER), 20, ctx.device),
+        "plain_ms": time_ms(lambda: alloc_plain(*args, *ALLOC_HYPER), 1, ctx.device),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": f"B={B} F={F}",
+    }
+
+
+def check_alloc_facets(ctx: Ctx) -> dict:
+    """Kernel 3's hull test at its threshold: demands 2 error bounds either
+    side of the margin on every row (facet_demands).  The kernel must give
+    the exact answer on every row that is not on the threshold."""
+    from ft_mpc_torch.solvers.lanes_alloc import _alloc_cuda, alloc_plain
+
+    B = len(ctx.bank.r)
+    D, _, ff, u_ub, hA, hb, G, c, step, mt = alloc_args(ctx, torch.zeros(B, 6))
+    w = facet_demands(hA, hb, G, c, ff, np.random.default_rng(2)).float()
+    args = [D, w, ff, u_ub, hA, hb, G, c, step, mt]
+    got, ref = _alloc_cuda(*args, *ALLOC_HYPER), alloc_plain(*args, *ALLOC_HYPER)
+    clipped, on_thr = hull_truth(hA, hb, w, ff)
+    _, band = hull_slack(hA, hb, w, ff)
+    wrong = lambda r: int((((r[2][:, 0] > 0.5) != clipped) & ~on_thr).sum())
+    return {"rows": B, "decisive": int((~on_thr).sum()), "clipped": int(clipped.sum()),
+            "wrong_kernel": wrong(got), "wrong_plain": wrong(ref),
+            "band_median": float(band[hb < 1e7].median()),
+            "band_max": float(band[hb < 1e7].max())}
+
+
+def check_alloc_main(ctx: Ctx, out) -> dict:
+    """Kernel 3 against its plain version on the main path's own wrenches,
+    with the plain version in float64 as the control for float32 rounding.
+
+    The MPC drives its wrenches onto hull facets, where the hull test is
+    decided by rounding, and clipped rows take the 60-step FISTA projection
+    instead of the wrench.  So a branch choice may differ, but only on a row
+    that sits on a threshold: the hull test within its error bound
+    (hull_slack), or the fallback where the side that kept its u has an
+    equality error above half the fallback threshold.
+    """
+    from ft_mpc_torch.solvers.lanes_alloc import _alloc_cuda, alloc_plain
+
+    args = alloc_args(ctx, out.wrench)
+    got = _alloc_cuda(*args, *ALLOC_HYPER)
+    ref = alloc_plain(*args, *ALLOC_HYPER)
+    ref64 = alloc_plain(*(a.double() for a in args), *ALLOC_HYPER)
+    branch = lambda r: r[2][:, :2] > 0.5
+
+    def compare(a, b):
+        same = (branch(a) == branch(b)).all(dim=1)
+        du = (a[0].double() - b[0].double()).abs().max(dim=1).values
+        return same, (float(du[same].max()) if bool(same.any()) else 0.0)
+
+    same, err = compare(got, ref)
+    same_c, err_c = compare(ref, ref64)
+    same_k, err_k = compare(got, ref64)
+    _, on_thr = hull_truth(*args[4:6], args[1], args[2])
+    bk, bp = branch(got), branch(ref)
+    hull_flip = bk[:, 0] != bp[:, 0]
+    fb_flip = ~hull_flip & (bk[:, 1] != bp[:, 1])
+    # the side that kept its u reports its equality error in flags[:, 2]
+    kept_eq = torch.where(bk[:, 1], ref[2][:, 2], got[2][:, 2])
+    B = len(args[1])
+    return {
+        "rows": B,
+        "branch_rows": int((~same).sum()),
+        "hull_flips": int(hull_flip.sum()),
+        "hull_flips_off_threshold": int((hull_flip & ~on_thr).sum()),
+        "rows_on_hull_threshold": int(on_thr.sum()),
+        "fallback_flips": int(fb_flip.sum()),
+        "fallback_flips_kept_eq_err": sorted(float(e) for e in kept_eq[fb_flip]),
+        "u_err": err,
+        "control_branch_rows": int((~same_c).sum()), "control_u_err": err_c,
+        "kernel_vs_f64_branch_rows": int((~same_k).sum()), "kernel_vs_f64_u_err": err_k,
+    }
+
+
+def card_vs_cpu(device, x0: np.ndarray) -> dict:
+    """One whole step (init + step) on the card and in the port's CPU run,
+    float32 both, on the first len(x0) bank rows from states x0.
+
+    The MPC's wrench is compared on every row.  u_phys is compared on the rows
+    whose allocation took the same branches on both sides: the wrench lands
+    on a hull facet (an active constraint), so the hull test is decided by
+    rounding, and the clipped branch's 60-step FISTA projection moves u by up
+    to ~1 N (the float64 CPU run differs from the float32 one in the same
+    way).  Those rows are counted.
+    """
+    rows = len(x0)
+    outs = []
+    for dev in (device, torch.device("cpu")):
+        ctx = Ctx(dev, torch.float32, rows, x0=x0)
+        o = ctx.step(ctx.init())
+        flags = torch.stack([o.alloc.was_clipped, o.alloc.used_fallback], dim=1)
+        outs.append((o.u_phys.cpu(), o.wrench.cpu(), flags.cpu()))
+    (u_g, w_g, f_g), (u_c, w_c, f_c) = outs
+    same = (f_g == f_c).all(dim=1)
+    return {
+        "finite": bool(torch.isfinite(u_g).all() and torch.isfinite(w_g).all()),
+        "wrench_err": float((w_g - w_c).abs().max()),
+        "u_err": float((u_g - u_c).abs().max(dim=1).values[same].max()) if same.any() else 0.0,
+        "branch_rows": int((~same).sum()),
+        "rows": rows,
+    }
+
+
+def profile_steps(ctx: Ctx, warm, path: Path, n: int = 2) -> None:
+    """torch.profiler over `n` steps: device time by kernel and host time by
+    the port's ranges, a summary printed and the full table written to `path`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(ctx.device)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            warm = ctx.step(warm).warm
+        sync(ctx.device)
+    wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    ev = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    dev_time = lambda e: getattr(e, "self_device_time_total", 0)
+    # device time of kernels and copies; the port's ranges (ft_mpc.*) also
+    # appear as device-side spans, which would count their kernels twice
+    dev_us = sum(dev_time(e) for e in ev
+                 if getattr(e, "device_type", None) == cuda
+                 and not e.key.startswith("ft_mpc."))
+    table = ev.table(sort_by="self_device_time_total", row_limit=60)
+    lines = [f"wall per step {wall_ms:.3f} ms under the profiler, device busy per "
+             f"step {dev_us / 1e3 / n:.3f} ms ({100 * dev_us / 1e3 / n / wall_ms:.1f}%)"]
+    spans = {e.key: dev_time(e) for e in ev if e.key.startswith("ft_mpc.")
+             and getattr(e, "device_type", None) == cuda}
+    hosts = [e for e in ev if e.key.startswith("ft_mpc.") and e.cpu_time_total > 0]
+    for e in sorted(hosts, key=lambda e: -e.cpu_time_total):
+        lines.append(f"{e.key}: host {e.cpu_time_total / 1e3 / n:.3f} ms/step "
+                     f"({100 * e.cpu_time_total / 1e3 / n / wall_ms:.1f}%), device span "
+                     f"{spans.get(e.key, 0) / 1e3 / n:.3f} ms/step, {e.count // n} per step")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text("\n".join(lines) + "\n\n" + table)
+    for ln in lines:
+        log("profile: " + ln)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", type=Path, metavar="FILE",
+                    help="trace two steps with torch.profiler; write the table to FILE")
+    args = ap.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs the port on the GPU",
+              file=sys.stderr)
+        return 2
+    if not (REPO / "ft_mpc_torch" / "csrc").is_dir():
+        print(f"chip_smoke: ft_mpc_torch/ not found beside {__file__}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    import ft_mpc_torch
+
+    ft_mpc_torch.pin_fp32_matmuls()
+    device = torch.device("cuda", 0)
+    card = card_line()
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("TF32 must be off for the matmuls that feed K^-1")
+
+    build_s = build_kernels()
+    log(f"build: {build_s:.1f} s (nvcc, one process per source, sm_90a)")
+
+    # every check below is read and printed; the run fails at the end if any failed
+    failures = []
+
+    def check(ok: bool, msg: str) -> None:
+        if not ok:
+            failures.append(msg)
+            log(f"chip_smoke: check failed: {msg}")
+
+    ctx = Ctx(device, torch.float32, BATCH)
+    main_res, warm, out = drive_main_path(ctx)
+    log("main path: " + json.dumps(main_res))
+    log(f"main path: p50 {main_res['p50_ms']:.3f} ms vs the {PERIOD_MS:.0f} ms control "
+        f"period (not gated); p99 {main_res['p99_ms']:.3f} ms; "
+        f"{main_res['solves_per_s']:.1f} solves/s")
+    log(f"gap rows {main_res['gap_rows']} vs the reference's pinned set "
+        f"{sorted(REFERENCE_GAP_ROWS)}")
+    check(main_res["finite"], "main path produced non-finite outputs")
+    check(main_res["u_shape"] == (BATCH, 16), f"u_phys shape {main_res['u_shape']}")
+    check(main_res["max_term_gap"] <= GAP_GATE,
+          f"max_term_gap {main_res['max_term_gap']} > {GAP_GATE}")
+    zero = [k for k, v in main_res["launches"].items() if v <= 0]
+    check(not zero, f"kernels never launched on the main path: {zero}")
+
+    if args.profile:
+        profile_steps(ctx, warm, args.profile)
+
+    rows = []
+    rows.append(check_condense(ctx, warm))
+    adm = check_admm(ctx, admm_inputs(ctx, warm, ctx.weights), ctx.cfg.admm.iters,
+                     "main path T=64")
+    rows.append(adm)
+    x_lb, x_ub = np.full(13, -1e8), np.full(13, 1e8)
+    x_lb[3:6], x_ub[3:6] = -1.0, 1.0  # velocity box and wrench-rate rows
+    boxed = ctx.sp.MPCWeights.from_diagonals(
+        Q_DIAG, R_DIAG, x_lb=x_lb, x_ub=x_ub, du_max=np.full(6, 0.5),
+        dtype=torch.float32, device=device,
+    )
+    extra = [
+        check_admm(ctx, admm_inputs(ctx, warm, boxed), ctx.cfg.admm.iters,
+                   "box and rate rows T>64", reps=3),
+        check_admm(ctx, admm_inputs(ctx, warm, ctx.weights,
+                                    rows=torch.topk(out.info.r_prim, 256).indices),
+                   ctx.cfg.cleanup_iters, "cleanup K=256", reps=3),
+    ]
+    rows.append(check_alloc(ctx))
+    for r in rows + extra:
+        log("kernel: " + json.dumps(r))
+    for r in rows + extra:
+        tol = r.get("tol")
+        ok = (r["max_abs_err"] <= tol) if tol is not None else (r["max_rel_err"] <= r["tol_rel"])
+        check(ok and np.isfinite(r["max_abs_err"]) and r.get("branches_equal", True),
+              f"{r['name']} ({r['shape']}) disagrees with its plain version")
+        r["launches"] = main_res["launches"][r["name"]]
+
+    facets = check_alloc_facets(ctx)
+    log("alloc at the hull test's threshold (demands 2 error bounds either side): "
+        + json.dumps(facets))
+    check(facets["wrong_kernel"] == 0 and facets["decisive"] >= 0.9 * facets["rows"]
+          and 0 < facets["clipped"] < facets["rows"],
+          "allocation kernel decides the hull test wrongly off its threshold")
+
+    am = check_alloc_main(ctx, out)
+    log("alloc on the main path's wrenches (control: plain float32 vs plain "
+        "float64): " + json.dumps(am))
+    check(am["u_err"] <= TOL_ALLOC_MAIN,
+          f"allocation kernel: max |du| {am['u_err']} > {TOL_ALLOC_MAIN} on the main "
+          f"path's rows with equal branches")
+    check(am["branch_rows"] <= MAX_FLIP_SHARE * am["rows"],
+          f"allocation kernel: branches differ on {am['branch_rows']} of {am['rows']} rows")
+    check(am["hull_flips_off_threshold"] == 0,
+          "allocation kernel: the hull test differs on a row off its threshold")
+    check(all(e > FALLBACK_EQ_ERR / 2 for e in am["fallback_flips_kept_eq_err"]),
+          "allocation kernel: the fallback choice differs on a row far from its threshold")
+
+    for label, x0 in (("states near the terminal sets", gentle_x0(64)),
+                      ("bench states", bench_x0(64))):
+        step = card_vs_cpu(device, x0)
+        log(f"whole step, card vs CPU port ({step['rows']} rows, {label}, float32): "
+            f"max |dwrench| {step['wrench_err']:.3e}, max |du_phys| {step['u_err']:.3e} "
+            f"(tol {TOL_STEP_U}) on the rows whose allocation took the same branches; "
+            f"{step['branch_rows']} rows on a branch threshold")
+        check(step["finite"], f"card step on {label} is not finite")
+        check(step["wrench_err"] <= TOL_STEP_U and step["u_err"] <= TOL_STEP_U
+              and step["branch_rows"] <= step["rows"] // 8,
+              f"card step differs from the CPU port on {label}: {step}")
+
+    if failures:
+        fail("; ".join(failures))
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    log(card)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

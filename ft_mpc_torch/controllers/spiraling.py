@@ -1,0 +1,591 @@
+"""Batched spiraling (micro-orbiting) MPC as a real-time-iteration SQP on the
+condensed backend.  Counterpart of the batched subset of
+`ft_mpc_tpu/controllers/spiraling.py`: `init_warmstart(_batch)`,
+`sqp_solve_batch` and `get_control_batch` with `qp_backend='condensed'`.
+
+Each control step, per SQP iteration: linearize the RK4 orbit-center
+dynamics along the warm trajectory (`torch.func.vmap(jacfwd)` over the
+flattened (B * Nt) stages), condense (kernel `csrc/condense.cu`), assemble
+the dense 90-variable QP, refresh K^{-1}, run the ADMM kernel, and take a
+3-candidate merit line search.  Then the worst-K scenarios get one
+exact-metric cleanup iteration, and the first input is un-rotated and
+allocated to thrusters (kernel `csrc/alloc.cu`).
+
+Functions take batch-leading tensors with the JAX package's shapes; the
+dtype follows the inputs (float64 in the CPU parity tests, float32 on the
+card).  The per-scenario paths (`sqp_solve`, `get_control`,
+`shift_warmstart`) and the stagewise backend are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch.profiler import record_function
+from torch.utils._pytree import tree_flatten, tree_unflatten
+
+from ft_mpc_torch import resolve_device
+from ft_mpc_torch.geometry.scenario import Scenario, take_rows
+from ft_mpc_torch.ops.dynamics import (
+    BodyParams,
+    _matvec,
+    center_step,
+    robot_to_center,
+)
+from ft_mpc_torch.ops.quaternion import rot_full, rot_full_inv
+from ft_mpc_torch.solvers.allocation import AllocationResult
+from ft_mpc_torch.solvers.lanes_alloc import allocate_thrusters_lanes
+from ft_mpc_torch.solvers.lanes_condense import condense_lanes, condense_plain
+from ft_mpc_torch.solvers.lanes_qp import build_K, exact_kinv, solve_mpc_qp_lanes
+from ft_mpc_torch.solvers.mpc_qp import StructuredADMMConfig, StructuredMPCQP
+from ft_mpc_torch.terminal.poly import (
+    terminal_gradient,
+    terminal_hessian_psd,
+    terminal_value,
+)
+
+_BIG = 1e8
+N_X = 13
+N_U = 6
+N_OPT = 9  # states with running cost: pos, vel, omega
+
+_vmap = torch.func.vmap
+
+
+class MPCConfig(NamedTuple):
+    """Static controller configuration (fields of the batched condensed path)."""
+
+    horizon: int = 15
+    sqp_iters: int = 3
+    admm: StructuredADMMConfig = StructuredADMMConfig(iters=30, phases=1, rho=50.0)
+    qp_backend: str = "condensed"  # the only backend ported so far
+    prox: float = 0.0
+    ls_alphas: tuple = (1.0, 0.5, 0.0)
+    ls_penalty: float = 1e3
+    newton_iters: int = 3
+    cleanup_iters: int = 0
+    cleanup_k: int = 256
+    cleanup_phases: int = 2
+    cleanup_rounds: int = 1
+    term_relax: float = 0.5
+
+
+class MPCWeights(NamedTuple):
+    """Cost data + optional stage state box and wrench-rate bound."""
+
+    Q: torch.Tensor  # (9, 9)
+    R: torch.Tensor  # (6, 6)
+    x_lb: torch.Tensor | None = None  # (13,)
+    x_ub: torch.Tensor | None = None  # (13,)
+    du_max: torch.Tensor | None = None  # (6,)
+
+    @classmethod
+    def from_diagonals(cls, q, r, x_lb=None, x_ub=None, du_max=None,
+                       dtype: torch.dtype = torch.float32, device=None) -> "MPCWeights":
+        dev = resolve_device(device)
+        t = lambda v: torch.as_tensor(v, dtype=dtype, device=dev)
+        opt = lambda v: None if v is None else t(v)
+        return cls(Q=torch.diag(t(q)), R=torch.diag(t(r)),
+                   x_lb=opt(x_lb), x_ub=opt(x_ub), du_max=opt(du_max))
+
+    @property
+    def has_state_box(self) -> bool:
+        return self.x_lb is not None or self.x_ub is not None
+
+
+def n_extra_rows(weights: MPCWeights, horizon: int) -> int:
+    """Count of extra dense rows (state box + rate) in the term block."""
+    E = 0
+    if weights.has_state_box:
+        E += 2 * N_X * (horizon - 1)
+    if weights.du_max is not None:
+        E += 2 * N_U * (horizon - 1)
+    return E
+
+
+def _box_bounds(weights: MPCWeights, dtype, device):
+    xub = (torch.full((N_X,), _BIG, dtype=dtype, device=device) if weights.x_ub is None
+           else weights.x_ub.to(dtype))
+    xlb = (torch.full((N_X,), -_BIG, dtype=dtype, device=device) if weights.x_lb is None
+           else weights.x_lb.to(dtype))
+    return xlb, xub
+
+
+def params_batch_axes(params: BodyParams) -> BodyParams:
+    """vmap in_dims for a possibly scenario-batched `BodyParams`.
+
+    A leaf whose ndim exceeds its canonical rank (mass/dt 0, matrices 2)
+    carries a leading scenario axis (0); the rest are shared (None).
+    """
+    base = BodyParams(mass=0, inertia=2, inertia_inv=2, max_thrust=0, D=2, dt=0)
+    return BodyParams(
+        *[0 if leaf.dim() > nd else None for leaf, nd in zip(params, base)]
+    )
+
+
+def _params_row(params: BodyParams, p_ax: BodyParams, idx) -> BodyParams:
+    """Gather rows idx from the batched leaves of params (shared leaves pass)."""
+    return BodyParams(
+        *[leaf[idx] if ax == 0 else leaf for leaf, ax in zip(params, p_ax)]
+    )
+
+
+class _StageData(NamedTuple):
+    """The scenario leaves the stage dynamics read (gathered per stage row)."""
+
+    faulty_force_gen: torch.Tensor
+    r: torch.Tensor
+    u_comp: torch.Tensor
+
+
+def _stage_rows(params, bank: Scenario, rows):
+    """Per-row plant and stage data for flattened rows -> scenario index."""
+    p_ax = params_batch_axes(params)
+    sd = _StageData(bank.faulty_force_gen[rows], bank.r[rows], bank.u_comp[rows])
+    return _params_row(params, p_ax, rows), p_ax, sd
+
+
+class WarmStart(NamedTuple):
+    X: torch.Tensor  # (B, Nt+1, 13) center-state trajectory
+    U: torch.Tensor  # (B, Nt, 6) input deviations
+    y_hull: torch.Tensor  # (B, Nt, F)
+    y_term: torch.Tensor  # (B, T + E)
+    rho: torch.Tensor  # (B,)
+    kinv: torch.Tensor | None = None  # (B, n, n) float32 inverse ADMM metric
+
+
+class SQPInfo(NamedTuple):
+    cost: torch.Tensor
+    r_prim: torch.Tensor
+    r_dual: torch.Tensor
+    defect: torch.Tensor
+    du_norm: torch.Tensor
+    term_gap: torch.Tensor
+
+
+class ControlOutput(NamedTuple):
+    u_phys: torch.Tensor  # (B, 16)
+    wrench: torch.Tensor  # (B, 6)
+    c0: torch.Tensor  # (B, 13)
+    warm: WarmStart
+    info: SQPInfo
+    alloc: AllocationResult
+
+
+def init_warmstart(params: BodyParams, scenario: Scenario, cfg: MPCConfig,
+                   c0: torch.Tensor, weights: MPCWeights | None = None) -> WarmStart:
+    """Roll the center dynamics forward with zero deviation input.
+
+    Works on one scenario or a batch: every leaf's leading dims must match
+    c0's (batched plant leaves included).
+    """
+    x = c0
+    Xs = [c0]
+    for _ in range(cfg.horizon):
+        x = center_step(params, scenario.faulty_force_gen, scenario.r, x,
+                        scenario.u_comp)
+        Xs.append(x)
+    lead = c0.shape[:-1]
+    kw = dict(dtype=c0.dtype, device=c0.device)
+    F = scenario.hull_A.shape[-2]
+    T = scenario.term_A.shape[-2]
+    E = 0 if weights is None else n_extra_rows(weights, cfg.horizon)
+    return WarmStart(
+        X=torch.stack(Xs, dim=-2),
+        U=torch.zeros(*lead, cfg.horizon, N_U, **kw),
+        y_hull=torch.zeros(*lead, cfg.horizon, F, **kw),
+        y_term=torch.zeros(*lead, T + E, **kw),
+        rho=torch.full(lead, cfg.admm.rho, **kw),
+    )
+
+
+def _stage_dynamics(params: BodyParams, scenario, x, u, u_ref_t):
+    """Discrete center dynamics of a stage under deviation input u.
+
+    Total commanded wrench = u + rot(x) u_ref + u_comp; `scenario` is any
+    object with faulty_force_gen, r and u_comp (a `Scenario` or `_StageData`).
+    """
+    u_r = _matvec(rot_full_inv(x[..., 9:13]), u_ref_t)
+    return center_step(params, scenario.faulty_force_gen, scenario.r, x,
+                       u + u_r + scenario.u_comp)
+
+
+def _condense(A_stack, B_stack, defects, horizon):
+    """Prediction matrices delta_x_t = S_t delta_U + phi_t (plain recursion).
+
+    The plain version of the condensing kernel, in the input dtype.
+    """
+    if A_stack.shape[-3] != horizon:
+        raise ValueError(f"_condense: {A_stack.shape[-3]} stages, horizon {horizon}")
+    return condense_plain(A_stack, B_stack, defects)
+
+
+def _masked_geometry(scenario: Scenario):
+    """Constraint geometry with padded rows made inert (batched or not)."""
+    hull_A = scenario.hull_A * scenario.hull_mask[..., None]
+    hull_b = torch.where(scenario.hull_mask > 0.5, scenario.hull_b, _BIG)
+    term_A = scenario.term_A * scenario.term_mask[..., None]
+    term_b = torch.where(scenario.term_mask > 0.5, scenario.term_b, _BIG)
+    return hull_A, hull_b, term_A, term_b
+
+
+def _linearize(params, bank: Scenario, cfg: MPCConfig, X, U, u_ref):
+    """Batched dynamics values + jacobians along (X, U).
+
+    vmap(jacfwd) over the flattened (B * Nt) stages; batched plant leaves
+    are gathered per stage row and mapped over axis 0, shared ones are not.
+    Returns A (B,Nt,13,13), B (B,Nt,13,6), defects (B,Nt,13).
+    """
+    B, Nt = X.shape[0], cfg.horizon
+    rows = torch.arange(B, device=X.device).repeat_interleave(Nt)
+    prow, p_ax, sd = _stage_rows(params, bank, rows)
+
+    def f(p, s, x, u, ur):
+        out = _stage_dynamics(p, s, x, u, ur)
+        return out, out
+
+    jac = torch.func.jacfwd(f, argnums=(2, 3), has_aux=True)
+    (A, Bm), f_vals = _vmap(jac, in_dims=(p_ax, 0, 0, 0, 0))(
+        prow, sd, X[:, :-1].reshape(B * Nt, N_X), U.reshape(B * Nt, N_U),
+        u_ref[:Nt].repeat(B, 1),
+    )
+    defects = f_vals.reshape(B, Nt, N_X) - X[:, 1:]
+    return A.reshape(B, Nt, N_X, N_X), Bm.reshape(B, Nt, N_X, N_U), defects
+
+
+def _ext_rows(weights: MPCWeights, X, S_all, phi_all, stage_offset):
+    """Batched extra dense inequality rows (state box, then rate rows).
+
+    State box (stages 1..Nt-1): +/- S_t dU <= +/-(x_bound - X_t - phi_t).
+    Rate rows: +/-(dU_t - dU_{t-1}) <= du_max -/+ (offset_t - offset_{t-1}).
+    Returns (G (B,E,n), h (B,E)); caller guarantees E > 0.
+    """
+    dtype, dev = X.dtype, X.device
+    B, Nt = S_all.shape[:2]
+    n_dec = S_all.shape[-1]
+    rows_G, rows_h = [], []
+    if weights.has_state_box:
+        xlb, xub = _box_bounds(weights, dtype, dev)
+        S_box = S_all[:, :-1].reshape(B, (Nt - 1) * N_X, n_dec)
+        x_nom = X[:, 1:-1] + phi_all[:, :-1]
+        rows_G += [S_box, -S_box]
+        rows_h += [(xub - x_nom).reshape(B, -1), (x_nom - xlb).reshape(B, -1)]
+    if weights.du_max is not None:
+        eyeN = torch.eye(Nt, dtype=dtype, device=dev)
+        rate_G = torch.kron(eyeN[1:] - eyeN[:-1], torch.eye(N_U, dtype=dtype, device=dev))
+        rate_G = rate_G.expand(B, *rate_G.shape)
+        dw = (stage_offset[:, 1:] - stage_offset[:, :-1]).reshape(B, -1)
+        dmax = weights.du_max.to(dtype).repeat(Nt - 1)
+        rows_G += [rate_G, -rate_G]
+        rows_h += [dmax - dw, dmax + dw]
+    return torch.cat(rows_G, dim=1), torch.cat(rows_h, dim=1)
+
+
+def _assemble_condensed_batch(params, bank, weights, cfg, X, U, x_ref, u_ref,
+                              hull_A, hull_b, term_A, term_b):
+    """Batched linearization + condensing kernel + dense QP assembly.
+
+    x_ref carries a leading scenario axis (B, Nt+1, 9).  Returns
+    (StructuredMPCQP, S_all, phi_all, defects).
+    """
+    Nt = cfg.horizon
+    dtype, dev = X.dtype, X.device
+    B = X.shape[0]
+    n_dec = Nt * N_U
+
+    with record_function("ft_mpc.linearize"):
+        A_stack, B_stack, defects = _linearize(params, bank, cfg, X, U, u_ref)
+
+    u_r_bar = _matvec(rot_full_inv(X[:, :-1, 9:13]), u_ref[:Nt])
+    stage_offset = (
+        U + u_r_bar + bank.u_comp[:, None, :] + bank.faulty_force_gen[:, None, :]
+    )
+    h_hull = hull_b[:, None, :] - torch.einsum("bti,bfi->btf", stage_offset, hull_A)
+
+    with record_function("ft_mpc.condense"):
+        S_all, phi_all = condense_lanes(A_stack, B_stack, defects)
+    S9 = S_all[:, :, :N_OPT, :]
+    e0 = X[:, 1:, :N_OPT] + phi_all[:, :, :N_OPT] - x_ref[:, 1:]
+
+    S9_run, e0_run = S9[:, :-1], e0[:, :-1]
+    S9_N, e0_N = S9[:, -1], e0[:, -1]
+    R_blk = torch.kron(torch.eye(Nt, dtype=dtype, device=dev), weights.R)
+    with record_function("ft_mpc.terminal"):
+        HV = _vmap(terminal_hessian_psd)(bank.term, e0_N)  # (B, 9, 9)
+        gV = _vmap(terminal_gradient)(bank.term, e0_N)  # (B, 9)
+    H = 2.0 * (
+        torch.einsum("btin,ij,btjm->bnm", S9_run, weights.Q, S9_run)
+        + 0.5 * torch.einsum("bin,bij,bjm->bnm", S9_N, HV, S9_N)
+        + R_blk
+        + cfg.prox * torch.eye(n_dec, dtype=dtype, device=dev)
+    )
+    g = 2.0 * (
+        torch.einsum("btin,ij,btj->bn", S9_run, weights.Q, e0_run)
+        + U.reshape(B, -1) @ R_blk
+    ) + torch.einsum("bin,bi->bn", S9_N, gV)
+
+    G_term = torch.einsum("bti,bin->btn", term_A, S9_N)
+    h_term = term_b - torch.einsum("bti,bi->bt", term_A, e0_N)
+    h_term = torch.maximum(h_term, cfg.term_relax * h_term)
+
+    if n_extra_rows(weights, Nt) > 0:
+        G_ext, h_ext = _ext_rows(weights, X, S_all, phi_all, stage_offset)
+        h_ext = torch.maximum(h_ext, cfg.term_relax * h_ext)
+        G_term = torch.cat([G_term, G_ext], dim=1)
+        h_term = torch.cat([h_term, h_ext], dim=1)
+
+    qp = StructuredMPCQP(H=H, g=g, hull_A=hull_A, h_hull=h_hull,
+                         G_term=G_term, h_term=h_term)
+    return qp, S_all, phi_all, defects
+
+
+def _merit_alpha(params, bank, weights, cfg, X, U, dX, dU, x_ref, u_ref,
+                 hull_A, hull_b, term_A, term_b):
+    """Batched fixed-candidate l1-merit line search; returns alpha (B,).
+
+    All candidates are evaluated at once: the rollout runs over the
+    flattened (candidates * B * Nt) stage rows.
+    """
+    Nt = cfg.horizon
+    dtype, dev = X.dtype, X.device
+    B = X.shape[0]
+    alphas = torch.tensor(cfg.ls_alphas, dtype=dtype, device=dev)
+    nA = alphas.shape[0]
+    a = alphas[:, None, None, None]
+    Uc = U + a * dU  # (nA, B, Nt, 6)
+    Xc = torch.cat([X[:, :1].expand(nA, B, 1, N_X), X[:, 1:] + a * dX], dim=2)
+
+    rows = torch.arange(B, device=dev).repeat_interleave(Nt).repeat(nA)
+    prow, _, sd = _stage_rows(params, bank, rows)
+    f_c = _stage_dynamics(
+        prow, sd, Xc[:, :, :-1].reshape(-1, N_X), Uc.reshape(-1, N_U),
+        u_ref[:Nt].repeat(nA * B, 1),
+    ).reshape(nA, B, Nt, N_X)
+    defect_c = f_c - Xc[:, :, 1:]
+    e_run_c = Xc[:, :, 1:-1, :N_OPT] - x_ref[:, 1:-1]
+    e_N_c = Xc[:, :, -1, :N_OPT] - x_ref[:, -1]
+    J = (
+        torch.einsum("abti,ij,abtj->ab", e_run_c, weights.Q, e_run_c)
+        + torch.einsum("abti,ij,abtj->ab", Uc, weights.R, Uc)
+        + _vmap(_vmap(terminal_value), in_dims=(None, 0))(bank.term, e_N_c)
+    )
+    u_r_c = _matvec(rot_full_inv(Xc[:, :, :-1, 9:13]), u_ref[:Nt])
+    w_tot = Uc + u_r_c + bank.u_comp[:, None] + bank.faulty_force_gen[:, None]
+    viol = (
+        torch.abs(defect_c).sum(dim=(2, 3))
+        + torch.clamp(
+            torch.einsum("abti,bfi->abtf", w_tot, hull_A) - hull_b[:, None], min=0.0
+        ).sum(dim=(2, 3))
+        + torch.clamp(
+            torch.einsum("bti,abi->abt", term_A, e_N_c) - term_b, min=0.0
+        ).sum(dim=2)
+    )
+    if weights.has_state_box:
+        xlb, xub = _box_bounds(weights, dtype, dev)
+        xs = Xc[:, :, 1:-1]
+        viol = viol + torch.clamp(xs - xub, min=0.0).sum(dim=(2, 3))
+        viol = viol + torch.clamp(xlb - xs, min=0.0).sum(dim=(2, 3))
+    if weights.du_max is not None:
+        dw = w_tot[:, :, 1:] - w_tot[:, :, :-1]
+        viol = viol + torch.clamp(torch.abs(dw) - weights.du_max, min=0.0).sum(dim=(2, 3))
+    merits = J + cfg.ls_penalty * viol  # (nA, B)
+    # a non-finite candidate must never win over alpha = 0
+    merits = torch.where(torch.isfinite(merits), merits, torch.inf)
+    return alphas[torch.argmin(merits, dim=0)]
+
+
+def _per_scenario_ref(bank: Scenario, x_ref, B):
+    """(Nt+1, 9) shared window -> (B, Nt+1, 9) with each scenario's omega rows."""
+    x_ref = x_ref.expand(B, *x_ref.shape)
+    omega = bank.omega_des[:, None, :].to(x_ref.dtype).expand(B, x_ref.shape[1], 3)
+    return torch.cat([x_ref[..., :6], omega], dim=-1)
+
+
+def sqp_solve_batch(params: BodyParams, bank: Scenario, weights: MPCWeights,
+                    cfg: MPCConfig, c0, x_ref, u_ref, warm: WarmStart):
+    """Batched SQP over a scenario bank on the condensed backend.
+
+    warm.kinv is Newton-refreshed each solve and carried across steps;
+    with kinv=None the exact metric is factored once before the loop.
+    """
+    if cfg.sqp_iters < 1:
+        raise ValueError("sqp_solve_batch needs sqp_iters >= 1")
+    Nt = cfg.horizon
+    B = c0.shape[0]
+    x_ref = _per_scenario_ref(bank, x_ref, B)
+    hull_A, hull_b, term_A, term_b = _masked_geometry(bank)
+    X = torch.cat([c0[:, None], warm.X[:, 1:]], dim=1)
+
+    kinv = warm.kinv
+    if kinv is None:
+        qp0, _, _, _ = _assemble_condensed_batch(
+            params, bank, weights, cfg, X, warm.U, x_ref, u_ref,
+            hull_A, hull_b, term_A, term_b,
+        )
+        K0, _ = build_K(qp0, warm.rho.to(torch.float32), cfg.admm.sigma)
+        kinv = exact_kinv(K0)
+
+    U, yh, yt, rho = warm.U, warm.y_hull, warm.y_term, warm.rho
+    for _ in range(cfg.sqp_iters):
+        qp, S_all, phi_all, defects = _assemble_condensed_batch(
+            params, bank, weights, cfg, X, U, x_ref, u_ref,
+            hull_A, hull_b, term_A, term_b,
+        )
+        sol = solve_mpc_qp_lanes(
+            qp, cfg.admm, y_hull0=yh, y_term0=yt, rho0=rho, kinv0=kinv,
+            newton_iters=cfg.newton_iters,
+        )
+        dU = sol.x.reshape(B, Nt, N_U)
+        dX = torch.einsum("btin,bn->bti", S_all, sol.x) + phi_all
+        with record_function("ft_mpc.line_search"):
+            alpha = _merit_alpha(params, bank, weights, cfg, X, U, dX, dU, x_ref,
+                                 u_ref, hull_A, hull_b, term_A, term_b)
+        a = alpha[:, None, None]
+        U = U + a * dU
+        X = torch.cat([X[:, :1], X[:, 1:] + a * dX], dim=1)
+        r_prim_f, r_dual_f, term_gap_f = sol.r_prim, sol.r_dual, sol.term_gap
+        defect_f = torch.abs(defects).amax(dim=(1, 2))
+        du_norm_f = alpha * torch.abs(sol.x).amax(dim=1)
+        yh, yt, rho, kinv = sol.y_hull, sol.y_term, sol.rho.to(rho.dtype), sol.kinv
+
+    n_rounds = cfg.cleanup_rounds if (cfg.cleanup_iters > 0 and cfg.cleanup_k > 0) else 0
+    p_ax = params_batch_axes(params)
+    for _ in range(n_rounds):
+        with record_function("ft_mpc.cleanup"):
+            # Worst-K on QP residual + SQP step + shooting defect; torch.topk may
+            # order ties differently from lax.top_k.
+            K = min(cfg.cleanup_k, B)
+            _, idx = torch.topk(r_prim_f + du_norm_f + defect_f, K)
+            bank_s = take_rows(bank, idx)
+            params_s = _params_row(params, p_ax, idx)
+            X_s, U_s = X[idx], U[idx]
+            qp_s, S_s, phi_s, defects_s = _assemble_condensed_batch(
+                params_s, bank_s, weights, cfg, X_s, U_s, x_ref[idx], u_ref,
+                hull_A[idx], hull_b[idx], term_A[idx], term_b[idx],
+            )
+            ccfg = cfg.admm._replace(iters=cfg.cleanup_iters, phases=cfg.cleanup_phases,
+                                     adapt_clip=5.0)
+            # kinv0=None: exact inverse and exact per-phase refactor
+            sol = solve_mpc_qp_lanes(qp_s, ccfg, y_hull0=yh[idx], y_term0=yt[idx],
+                                     rho0=rho[idx])
+            dU_s = sol.x.reshape(K, Nt, N_U)
+            dX_s = torch.einsum("btin,bn->bti", S_s, sol.x) + phi_s
+            alpha = _merit_alpha(params_s, bank_s, weights, cfg, X_s, U_s, dX_s, dU_s,
+                                 x_ref[idx], u_ref, hull_A[idx], hull_b[idx],
+                                 term_A[idx], term_b[idx])
+            a = alpha[:, None, None]
+            # Scatter back in place (the JAX path's .at[idx].set): every target
+            # was produced inside this call, so no caller tensor is written.
+            X.index_copy_(0, idx, torch.cat([X_s[:, :1], X_s[:, 1:] + a * dX_s], dim=1))
+            U.index_copy_(0, idx, U_s + a * dU_s)
+            yh.index_copy_(0, idx, sol.y_hull)
+            yt.index_copy_(0, idx, sol.y_term)
+            rho.index_copy_(0, idx, sol.rho.to(rho.dtype))
+            kinv.index_copy_(0, idx, sol.kinv)
+            r_prim_f.index_copy_(0, idx, sol.r_prim)
+            r_dual_f.index_copy_(0, idx, sol.r_dual)
+            defect_f.index_copy_(0, idx, torch.abs(defects_s).amax(dim=(1, 2)))
+            du_norm_f.index_copy_(0, idx, alpha * torch.abs(sol.x).amax(dim=1))
+            term_gap_f.index_copy_(0, idx, sol.term_gap)
+
+    e_run = X[:, :-1, :N_OPT] - x_ref[:, :-1]
+    e_N = X[:, -1, :N_OPT] - x_ref[:, -1]
+    cost = (
+        torch.einsum("bti,ij,btj->b", e_run, weights.Q, e_run)
+        + torch.einsum("bti,ij,btj->b", U, weights.R, U)
+        + _vmap(terminal_value)(bank.term, e_N)
+    )
+    info = SQPInfo(cost=cost, r_prim=r_prim_f, r_dual=r_dual_f, defect=defect_f,
+                   du_norm=du_norm_f, term_gap=term_gap_f)
+    return WarmStart(X=X, U=U, y_hull=yh, y_term=yt, rho=rho, kinv=kinv), info
+
+
+def init_warmstart_batch(params: BodyParams, bank: Scenario, weights: MPCWeights,
+                         cfg: MPCConfig, c0, x_ref, u_ref) -> WarmStart:
+    """Batched warm start plus the exact cold-start inverse ADMM metric."""
+    if cfg.qp_backend != "condensed":
+        raise NotImplementedError(f"qp_backend {cfg.qp_backend!r} is not ported yet")
+    warm = init_warmstart(params, bank, cfg, c0, weights=weights)
+    hull_A, hull_b, term_A, term_b = _masked_geometry(bank)
+    x_ref = _per_scenario_ref(bank, x_ref, c0.shape[0])
+    qp, _, _, _ = _assemble_condensed_batch(
+        params, bank, weights, cfg, warm.X, warm.U, x_ref, u_ref,
+        hull_A, hull_b, term_A, term_b,
+    )
+    K, _ = build_K(qp, warm.rho.to(torch.float32), cfg.admm.sigma)
+    return warm._replace(kinv=exact_kinv(K))
+
+
+def get_control_batch(params: BodyParams, bank: Scenario, weights: MPCWeights,
+                      cfg: MPCConfig, x0, x_ref, u_ref, warm: WarmStart) -> ControlOutput:
+    """One full control step for a scenario bank (condensed backend).
+
+    x0 (B, 13) robot states; x_ref (Nt+1, 9) / u_ref (Nt+1, 6) shared
+    reference windows; warm from `init_warmstart_batch` or the previous step.
+    Per-scenario mass/inertia may ride on leading axes of `params`; D and
+    max_thrust stay shared.
+    """
+    if cfg.qp_backend != "condensed":
+        raise NotImplementedError(f"qp_backend {cfg.qp_backend!r} is not ported yet")
+    c0 = robot_to_center(bank.r, x0)
+    new_warm, info = sqp_solve_batch(params, bank, weights, cfg, c0, x_ref, u_ref, warm)
+    u_nom = _matvec(rot_full_inv(c0[:, 9:13]), u_ref[0])
+    u_res = new_warm.U[:, 0] + u_nom + bank.u_comp
+    u_res = _matvec(rot_full(bank.beta), u_res)
+    with record_function("ft_mpc.allocation"):
+        alloc = allocate_thrusters_lanes(
+            u_res, params.D, bank.u_ub, bank.faulty_force_gen,
+            bank.hull_A, bank.hull_b, bank.hull_mask,
+            bank.gen_G, bank.gen_c, bank.gen_L, params.max_thrust,
+        )
+    return ControlOutput(u_phys=alloc.u_phys, wrench=u_res, c0=c0,
+                         warm=new_warm, info=info, alloc=alloc)
+
+
+class BatchSpiralingController(torch.nn.Module):
+    """Thin module around `get_control_batch`.
+
+    Holds the plant, the scenario bank and the weights as buffers (so
+    `.to(device)` moves them); `forward` is one control step.
+    """
+
+    def __init__(self, params: BodyParams, bank: Scenario, weights: MPCWeights,
+                 cfg: MPCConfig, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self._specs = {}
+        for name, tree in (("params", params), ("bank", bank), ("weights", weights)):
+            leaves, spec = tree_flatten(tree)
+            self._specs[name] = (spec, len(leaves))
+            for i, leaf in enumerate(leaves):
+                self.register_buffer(
+                    f"{name}_{i}", None if leaf is None else leaf.to(dev)
+                )
+
+    def _tree(self, name):
+        spec, n = self._specs[name]
+        return tree_unflatten([getattr(self, f"{name}_{i}") for i in range(n)], spec)
+
+    @property
+    def params(self) -> BodyParams:
+        return self._tree("params")
+
+    @property
+    def bank(self) -> Scenario:
+        return self._tree("bank")
+
+    @property
+    def weights(self) -> MPCWeights:
+        return self._tree("weights")
+
+    def init_warmstart(self, x0, x_ref, u_ref) -> WarmStart:
+        bank = self.bank
+        c0 = robot_to_center(bank.r, x0)
+        return init_warmstart_batch(self.params, bank, self.weights, self.cfg,
+                                    c0, x_ref, u_ref)
+
+    def forward(self, x0, x_ref, u_ref, warm: WarmStart) -> ControlOutput:
+        return get_control_batch(self.params, self.bank, self.weights, self.cfg,
+                                 x0, x_ref, u_ref, warm)

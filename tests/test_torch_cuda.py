@@ -1,0 +1,174 @@
+"""The CUDA kernels of ft_mpc_torch against their plain PyTorch versions.
+
+Every test here needs an NVIDIA GPU and skips without one (decided when the
+test runs).  The file imports no JAX, so on a machine with a card and no JAX
+it runs alone:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Tolerances: both sides are float32 on the card and differ only in summation
+order.  condense rtol 1e-5 (a 15-step recursion of 13-term sums); ADMM x
+atol 5e-5 and y atol 5e-4 (`tests/test_lanes.py:61-64`); allocation u atol
+2e-3 N (`tests/test_lanes_alloc.py:75-78`); a whole control step u_phys
+atol 2e-2 N (`tests/test_lanes.py:174-178`).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from ft_mpc_torch.controllers import spiraling as sp
+from ft_mpc_torch.geometry.scenario import load_bank_snapshot, take_rows, tile_bank
+from ft_mpc_torch.ops.dynamics import BodyParams
+from ft_mpc_torch.solvers import lanes_alloc as la
+from ft_mpc_torch.solvers import lanes_condense as lc
+from ft_mpc_torch.solvers import lanes_qp as lq
+from ft_mpc_torch.solvers.mpc_qp import StructuredADMMConfig, StructuredMPCQP
+from ft_mpc_torch.utils.trajectory import generate_trajectory, prepare_center_trajectory
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.cuda
+
+F32 = torch.float32
+
+
+@pytest.fixture
+def dev():
+    """The card; skips where there is none (never decided at import)."""
+    if not torch.cuda.is_available():
+        pytest.skip("CUDA kernel test: needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def gen():
+    return np.random.default_rng(7)
+
+
+def np_(t):
+    return t.detach().cpu().double().numpy()
+
+
+def test_condense_kernel_matches_plain(dev, gen):
+    B, Nt = 300, 15
+    A = np.eye(13) + 0.08 * gen.standard_normal((B, Nt, 13, 13))
+    Bm = 0.1 * gen.standard_normal((B, Nt, 13, 6))
+    d = 0.01 * gen.standard_normal((B, Nt, 13))
+    args = [torch.as_tensor(x, dtype=F32, device=dev) for x in (A, Bm, d)]
+    n0 = lc.condense_lanes.launches
+    S, phi = lc.condense_lanes(*args)
+    torch.cuda.synchronize()
+    assert lc.condense_lanes.launches == n0 + 1
+    S_ref, phi_ref = lc.condense_plain(*args)
+    np.testing.assert_allclose(np_(S), np_(S_ref), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(np_(phi), np_(phi_ref), rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError):
+        lc._condense_cuda(args[0].double(), args[1], args[2])
+
+
+def admm_case(gen, T, device, B=260, Nt=15, F=32):
+    """A random QP with its exact metric K^-1 (`exact_kinv`, whose output is
+    not exactly symmetric), cold-started as `solve_mpc_qp_lanes` does."""
+    n = 6 * Nt
+    c = lambda a: torch.as_tensor(a, dtype=F32, device=device)
+    Hq = gen.standard_normal((B, n, 24))
+    qp = StructuredMPCQP(
+        H=c(np.einsum("bik,bjk->bij", Hq, Hq) * 0.1 + 2.0 * np.eye(n)),
+        g=c(gen.standard_normal((B, n))),
+        hull_A=c(gen.standard_normal((B, F, 6))),
+        h_hull=c(np.abs(gen.standard_normal((B, Nt, F))) + 0.5),
+        G_term=c(gen.standard_normal((B, T, n)) * 0.1),
+        h_term=c(np.abs(gen.standard_normal((B, T))) + 0.5),
+    )
+    rho = c(gen.uniform(1.0, 5.0, B))
+    K, _ = lq.build_K(qp, rho, 1e-6)
+    zeros = torch.zeros_like
+    return [lq.exact_kinv(K), qp.hull_A, qp.h_hull, qp.G_term, qp.h_term, qp.g,
+            zeros(qp.g), torch.clamp(qp.h_hull, max=0.0), torch.clamp(qp.h_term, max=0.0),
+            zeros(qp.h_hull), zeros(qp.h_term), rho]
+
+
+@pytest.mark.parametrize("T", [64, 596])
+def test_admm_kernel_matches_plain(dev, gen, T):
+    """T=64 keeps G_term in shared memory; T=596 (state box and rate rows at
+    Nt=15) reads it from device memory."""
+    args = admm_case(gen, T, dev)
+    n0 = lq.admm_lanes.launches
+    out = lq.admm_lanes(*args, 1e-6, 1.6, 60, 1e3)
+    torch.cuda.synchronize()
+    assert lq.admm_lanes.launches == n0 + 1
+    ref = lq.admm_plain(*[a.contiguous() for a in args], 1e-6, 1.6, 60, 1e3)
+    assert all(torch.isfinite(r).all() for r in ref)
+    np.testing.assert_allclose(np_(out[0]), np_(ref[0]), atol=5e-5)
+    for o, r in zip(out[1:], ref[1:]):
+        np.testing.assert_allclose(np_(o), np_(r), atol=5e-4)
+
+
+def _bank(rows, device):
+    bank = tile_bank(load_bank_snapshot(device=device, dtype=F32), -(-rows // 32))
+    return take_rows(bank, torch.arange(rows, device=device))
+
+
+def test_alloc_kernel_matches_plain(dev, gen):
+    """Demands of +-0.5 clip about a quarter of the rows and send a few to
+    the fallback.  (Far larger demands put rows on the eq_err = 1e-2
+    fallback threshold, where float32 summation order decides the branch.)"""
+    B = 2048
+    bank = _bank(B, dev)
+    params = BodyParams.default(0.1, device=dev)
+    wr = torch.as_tensor(gen.uniform(-0.5, 0.5, (B, 6)), dtype=F32, device=dev)
+    call = lambda b, p, w: la.allocate_thrusters_lanes(
+        w, p.D, b.u_ub, b.faulty_force_gen, b.hull_A, b.hull_b, b.hull_mask,
+        b.gen_G, b.gen_c, b.gen_L, p.max_thrust,
+    )
+    n0 = la.allocate_thrusters_lanes.launches
+    out = call(bank, params, wr)
+    torch.cuda.synchronize()
+    assert la.allocate_thrusters_lanes.launches == n0 + 1
+    ref = call(_bank(B, "cpu"), BodyParams.default(0.1, device="cpu"), wr.cpu())
+    assert 0 < int(ref.was_clipped.sum()) < B
+    np.testing.assert_array_equal(np_(out.was_clipped), np_(ref.was_clipped))
+    np.testing.assert_array_equal(np_(out.used_fallback), np_(ref.used_fallback))
+    np.testing.assert_allclose(np_(out.u_phys), np_(ref.u_phys), atol=2e-3)
+
+
+def test_control_step_card_matches_cpu(dev):
+    """One warm-started step on 16 rows: card (kernels) vs CPU (plain)."""
+    B, Nt = 16, 8
+    cfg = sp.MPCConfig(
+        horizon=Nt, sqp_iters=2, newton_iters=3, cleanup_iters=100, cleanup_k=4,
+        admm=StructuredADMMConfig(iters=60, phases=1, rho=50.0, adapt_clip=1.5),
+    )
+    traj = generate_trajectory("hover", 0.1, 5)
+    xr, ur = prepare_center_trajectory(traj, np.array([0.0, 0.0, 0.6]), 16.8, 0.1, Nt + 1)
+    rng = np.random.default_rng(0)
+    x0 = np.zeros((B, 13))
+    x0[:, 0:3] = rng.uniform(-0.4, 0.4, (B, 3))
+    q = rng.standard_normal((B, 4))
+    x0[:, 6:10] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        t = lambda a: torch.as_tensor(a, dtype=F32, device=device)
+        bank = _bank(B, device)
+        params = BodyParams.default(0.1, device=device)
+        w = sp.MPCWeights.from_diagonals([1] * 6 + [2] * 3, [0.1] * 3 + [0.01] * 3,
+                                         device=device)
+        x0_t, x_ref, u_ref = t(x0), t(xr[: Nt + 1]), t(ur[: Nt + 1])
+        c0 = sp.robot_to_center(bank.r, x0_t)
+        warm = sp.init_warmstart_batch(params, bank, w, cfg, c0, x_ref, u_ref)
+        launches = lq.admm_lanes.launches
+        outs.append(sp.get_control_batch(params, bank, w, cfg, x0_t, x_ref, u_ref, warm))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert lq.admm_lanes.launches > launches
+    assert torch.isfinite(outs[0].u_phys).all()
+    np.testing.assert_allclose(np_(outs[0].wrench), np_(outs[1].wrench), atol=2e-2)
+    # u_phys where both allocations took the same branches: a wrench on a
+    # hull facet meets the hull test's margin, decided there by rounding
+    branch = lambda o: torch.stack([o.alloc.was_clipped, o.alloc.used_fallback], 1).cpu()
+    same = (branch(outs[0]) == branch(outs[1])).all(dim=1).numpy()
+    assert same.sum() >= B - B // 8
+    np.testing.assert_allclose(np_(outs[0].u_phys)[same], np_(outs[1].u_phys)[same], atol=2e-2)
