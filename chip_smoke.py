@@ -2,11 +2,11 @@
 """Run the PyTorch port (`ft_mpc_torch`) on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py              # from the root of a checkout
-    python3 chip_smoke.py --profile out.txt   # also trace two steps
+    python3 chip_smoke.py --profile out.txt   # also trace steps of both paths
 
 1. Builds the CUDA kernels of `ft_mpc_torch/csrc/` with nvcc (one process
    per source, all at once) into `build/`.
-2. Drives the main path: the batched condensed control step at the bench's
+2. Drives the condensed path: the batched condensed control step at the bench's
    size (`bench.py`: B=2048 scenarios tiled from the 32-pattern bank,
    horizon 15, 2 SQP iterations, 60 ADMM iterations, 3 Newton steps,
    worst-256 cleanup at 600x3), `init_warmstart_batch` and then
@@ -19,6 +19,16 @@
    hull test's threshold and on the main path's own wrenches.
 4. Compares one whole step on the card with the port's CPU run on 64 rows,
    from states near the terminal sets and from the bench's states.
+5. Drives the stagewise (long-horizon) path at the largest point of
+   `benchmarks/envelope.py`: B=512 scenarios, horizon 240, 2 SQP iterations,
+   60 Riccati-in-ADMM iterations, worst-64 cleanup at 300x2, SW_WARMUP +
+   SW_STEPS = 3 + 12 chained steps, with the launch counters zeroed just
+   before and read just after; then holds the two Riccati sweep kernels,
+   each against its plain half, on the factorization and linear terms that
+   path last gave them (B=512 and the cleanup's B=64), the allocation
+   kernel on that path's own wrenches (B=512), and compares two chained
+   stagewise steps on the card with the CPU run at B=32, horizon 60.  The
+   path's max_r_prim and max_term_gap are gated.
 
 Prints the card's name and power limit, one JSON line with every kernel's
 numbers, and as its last line {"ok": true, "device": {...}}.  Exits with a
@@ -76,12 +86,37 @@ TOL_ALLOC = 2e-3
 TOL_ALLOC_MAIN = 1e-2
 MAX_FLIP_SHARE = 1 / 16
 TOL_STEP_U = 2e-2  # whole step, card vs CPU: tests/test_lanes.py:174-178
+#   riccati (both sweeps): relative to each output's scale, against the plain
+#     float32 sweep on the same inputs -- a 240-stage recursion of 13-term
+#     sums whose closed loop F_t contracts, so the summation-order difference
+#     does not grow along the horizon; and TOL_RICCATI_F64 against the plain
+#     sweep run in float64, which is the float32 rounding of the recursion
+#     itself (the plain float32 sweep's own distance is printed beside it).
+TOL_RICCATI = 1e-4
+TOL_RICCATI_F64 = 1e-3
 
 HULL_MARGIN = 1e-7  # the hull test: hull_A w_total <= hull_b + 1e-7
 FALLBACK_EQ_ERR = 1e-2  # the fallback replaces u only above this equality error
 U32 = 2.0 ** -24  # float32 unit roundoff
 WARMUP = 10  # bench.py: warm-up steps, then timed steps, all chained
 STEPS = 120
+
+# The stagewise path: the largest point of benchmarks/envelope.py, with the
+# configuration of benchmarks/long_horizon.py.
+SW_HORIZON = 240
+SW_BATCH = 512
+SW_WARMUP = 3
+SW_STEPS = 12
+SW_SMALL = (32, 60)  # (B, horizon) of the card-vs-CPU stagewise steps
+SW_SMALL_STEPS = 2  # chained, so the carried warm start, duals and rho are held
+# max_r_prim after the chained steps: the solver reaches 4.1e-3 on this bank
+# (16 single and 15 double faults) in every run on an H100, and a solver that
+# stops converging (a wrong rho rule, duals dropped between steps) reads far
+# above; benchmarks/long_horizon.py reports the same number and gates nothing.
+SW_R_PRIM_GATE = 1e-2
+CONDENSED_KERNELS = ("condense_lanes", "admm_lanes", "allocate_thrusters_lanes")
+STAGEWISE_KERNELS = ("riccati_bwd_lanes", "riccati_fwd_lanes",
+                     "allocate_thrusters_lanes")
 
 
 def log(*args) -> None:
@@ -103,11 +138,12 @@ def card_line() -> str:
 class Ctx:
     """Everything the main path needs, on one device and dtype."""
 
-    def __init__(self, device, dtype, B: int, x0=None):
+    def __init__(self, device, dtype, B: int, x0=None, stagewise_horizon: int = 0):
         from ft_mpc_torch.controllers import spiraling as sp
         from ft_mpc_torch.geometry.scenario import load_bank_snapshot, take_rows, tile_bank
         from ft_mpc_torch.ops.dynamics import BodyParams
         from ft_mpc_torch.solvers.mpc_qp import StructuredADMMConfig
+        from ft_mpc_torch.solvers.mpc_qp_stagewise import StagewiseConfig
         from ft_mpc_torch.utils.trajectory import (
             generate_trajectory,
             prepare_center_trajectory,
@@ -120,19 +156,34 @@ class Ctx:
         self.params = BodyParams.default(0.1, dtype=dtype, device=device)
         self.weights = sp.MPCWeights.from_diagonals(Q_DIAG, R_DIAG, dtype=dtype,
                                                     device=device)
-        # bench.py's deployed config
-        self.cfg = sp.MPCConfig(
-            horizon=HORIZON, sqp_iters=2,
-            admm=StructuredADMMConfig(iters=60, phases=1, rho=50.0, adapt_clip=1.5),
-            newton_iters=3, cleanup_iters=600, cleanup_k=256, cleanup_phases=3,
-        )
-        traj = generate_trajectory("hover", 0.1, 5)
+        if stagewise_horizon:
+            # benchmarks/long_horizon.py:73-101
+            Nt = stagewise_horizon
+            self.cfg = sp.MPCConfig(
+                horizon=Nt, sqp_iters=2, qp_backend="stagewise",
+                stagewise=StagewiseConfig(iters=60, phases=1, rho=50.0,
+                                          adapt_clip=1.5, mode="lanes"),
+                newton_iters=3, cleanup_iters=300, cleanup_k=max(1, B // 8),
+                cleanup_phases=2,
+            )
+            traj = generate_trajectory("hover", 0.1, max(30, (Nt + 2) * 0.1))
+            default_x0 = long_horizon_x0
+        else:
+            # bench.py's deployed config
+            Nt = HORIZON
+            self.cfg = sp.MPCConfig(
+                horizon=Nt, sqp_iters=2,
+                admm=StructuredADMMConfig(iters=60, phases=1, rho=50.0, adapt_clip=1.5),
+                newton_iters=3, cleanup_iters=600, cleanup_k=256, cleanup_phases=3,
+            )
+            traj = generate_trajectory("hover", 0.1, 5)
+            default_x0 = bench_x0
         x_ref, u_ref = prepare_center_trajectory(
-            traj, np.array([0.0, 0.0, 0.6]), 16.8, 0.1, HORIZON + 1
+            traj, np.array([0.0, 0.0, 0.6]), 16.8, 0.1, Nt + 1
         )
         t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-        self.x_ref, self.u_ref = t(x_ref[: HORIZON + 1]), t(u_ref[: HORIZON + 1])
-        self.x0 = t(bench_x0(B) if x0 is None else x0)
+        self.x_ref, self.u_ref = t(x_ref[: Nt + 1]), t(u_ref[: Nt + 1])
+        self.x0 = t(default_x0(B) if x0 is None else x0)
 
     def init(self):
         c0 = self.sp.robot_to_center(self.bank.r, self.x0)
@@ -153,6 +204,16 @@ def bench_x0(B: int) -> np.ndarray:
     q = rng.standard_normal((B, 4))
     x0[:, 6:10] = q / np.linalg.norm(q, axis=1, keepdims=True)
     x0[:, 10:13] = rng.uniform(-0.3, 0.3, (B, 3))
+    return x0
+
+
+def long_horizon_x0(B: int) -> np.ndarray:
+    """benchmarks/long_horizon.py:97-101: seeded positions, identity attitude,
+    at rest."""
+    rng = np.random.default_rng(0)
+    x0 = np.zeros((B, 13), dtype=np.float32)
+    x0[:, 0:3] = rng.uniform(-1, 1, (B, 3))
+    x0[:, 9] = 1.0
     return x0
 
 
@@ -209,12 +270,14 @@ def nbytes(*tensors) -> int:
 
 
 def counters():
-    from ft_mpc_torch.solvers import lanes_alloc, lanes_condense, lanes_qp
+    from ft_mpc_torch.solvers import lanes_alloc, lanes_condense, lanes_qp, lanes_riccati
 
     return {
         "condense_lanes": lanes_condense.condense_lanes,
         "admm_lanes": lanes_qp.admm_lanes,
         "allocate_thrusters_lanes": lanes_alloc.allocate_thrusters_lanes,
+        "riccati_bwd_lanes": lanes_riccati.riccati_bwd_lanes,
+        "riccati_fwd_lanes": lanes_riccati.riccati_fwd_lanes,
     }
 
 
@@ -239,8 +302,9 @@ def build_kernels() -> float:
     return build_s
 
 
-def drive_main_path(ctx: Ctx):
-    """init + WARMUP + STEPS chained steps; launch counts zeroed before, read after."""
+def drive_main_path(ctx: Ctx, warmup: int = WARMUP, steps: int = STEPS):
+    """init + warmup + steps chained steps; launch counts zeroed before, read
+    after."""
     from ft_mpc_torch.solvers.lanes_qp import newton_kinv
 
     for fn in counters().values():
@@ -251,12 +315,12 @@ def drive_main_path(ctx: Ctx):
     sync(ctx.device)
     init_ms = 1e3 * (time.perf_counter() - t0)
     out = None
-    for _ in range(WARMUP):
+    for _ in range(warmup):
         out = ctx.step(warm)
         warm = out.warm
     sync(ctx.device)
     samples = []
-    for _ in range(STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         out = ctx.step(warm)
         sync(ctx.device)
@@ -275,8 +339,9 @@ def drive_main_path(ctx: Ctx):
         "p50_ms": float(np.percentile(samples, 50)),
         "p99_ms": float(np.percentile(samples, 99)),
         "window_p50_ms": float(np.percentile(windows, 50)) if len(windows) else None,
-        "steps": WARMUP + STEPS,
+        "steps": warmup + steps,
         "launches": launches,
+        "launches_per_step": {k: v / (warmup + steps) for k, v in launches.items()},
         "newton_rescues": rescues,
         "slowest_steps_ms": {int(i): float(samples[i])
                              for i in np.argsort(samples)[::-1][:5]},
@@ -319,6 +384,15 @@ def check_condense(ctx: Ctx, warm) -> dict:
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": f"B={B} Nt={Nt}",
     }
+
+
+def rel_err(got, ref) -> tuple[float, float]:
+    """(max abs error, the same over the reference's scale) over tensor pairs."""
+    err = rel = 0.0
+    for g, r in zip(got, ref):
+        e = float((g.double() - r.double()).abs().max())
+        err, rel = max(err, e), max(rel, e / max(1.0, float(r.abs().max())))
+    return err, rel
 
 
 def admm_inputs(ctx: Ctx, warm, weights, rows=None):
@@ -366,12 +440,7 @@ def check_admm(ctx: Ctx, args, iters, label, reps=10) -> dict:
     plain = lambda: admm_plain(*args, c.sigma, c.alpha, iters, c.elastic_y_max)
     out, ref = run(), plain()
     sync(ctx.device)
-    err = 0.0
-    rel = 0.0
-    for o, r in zip(out, ref):  # x, zh, zt, yh, yt, each against its own scale
-        e = float((o - r).abs().max())
-        s = max(1.0, float(r.abs().max()))
-        err, rel = max(err, e), max(rel, e / s)
+    err, rel = rel_err(out, ref)  # x, zh, zt, yh, yt, each against its own scale
     B, Nt, F = args[2].shape
     T = args[4].shape[1]
     b_ms, b_by = bound_ms(nbytes(*args, *out), admm_flops(B, Nt, F, T, iters))
@@ -553,9 +622,109 @@ def check_alloc_main(ctx: Ctx, out) -> dict:
     }
 
 
-def card_vs_cpu(device, x0: np.ndarray) -> dict:
-    """One whole step (init + step) on the card and in the port's CPU run,
-    float32 both, on the first len(x0) bank rows from states x0.
+def capture_riccati(ctx: Ctx, warm) -> dict:
+    """One more stagewise step with the solver's `lqr_resolve_lanes` wrapped,
+    keeping the arguments of the last call at each batch size:
+    {B: (fact, q, r, qN, x0)}, the path's own factorization and linear terms,
+    late in an ADMM run.  Runs after the counted window; the solver's
+    reference is put back."""
+    from ft_mpc_torch.solvers import mpc_qp_stagewise as sw
+
+    seen = {}
+    real = sw.lqr_resolve_lanes
+
+    def recording(fact, *lin):
+        seen[fact.F.shape[0]] = (fact, *lin)
+        return real(fact, *lin)
+
+    sw.lqr_resolve_lanes = recording
+    try:
+        ctx.step(warm)
+        sync(ctx.device)
+    finally:
+        sw.lqr_resolve_lanes = real
+    return seen
+
+
+def check_riccati(ctx: Ctx, fact, q, r, qN, x0, label: str, reps: int = 20) -> list[dict]:
+    """Kernels 4 and 5, each against its plain half on the same inputs, the
+    pair against `lqr_resolve`, and all three against the plain sweeps in
+    float64.  Also with a seeded non-zero qN and x0 (the path passes x0 = 0)."""
+    from ft_mpc_torch.solvers.lanes_riccati import (
+        lqr_resolve_lanes,
+        riccati_bwd_lanes,
+        riccati_fwd_lanes,
+    )
+    from ft_mpc_torch.solvers.riccati import (
+        lqr_resolve,
+        resolve_bwd_plain,
+        resolve_fwd_plain,
+    )
+
+    f32 = lambda t: t.float().contiguous()  # as lqr_resolve_lanes hands them on
+    F, Bm, c, K, Qi, PC = (f32(t) for t in (fact.F, fact.B, fact.c, fact.K,
+                                            fact.Quu_inv, fact.PC))
+    q, r, qN, x0 = (f32(t) for t in (q, r, qN, x0))
+    contiguous = all(t.is_contiguous() for t in fact)
+    B, Nt = F.shape[:2]
+    rng = np.random.default_rng(3)
+    rnd = lambda t: torch.as_tensor(rng.standard_normal(tuple(t.shape)), dtype=t.dtype,
+                                    device=t.device)
+    dbl = lambda ts: [t.double() for t in ts]
+    res = {"bwd": [0.0, 0.0, 0.0, 0.0], "fwd": [0.0, 0.0, 0.0, 0.0]}
+
+    def hold(key, got, ref, ref64):
+        e, rel = rel_err(got, ref)
+        _, rel64 = rel_err(got, ref64)
+        _, plain64 = rel_err(ref, ref64)
+        res[key] = [max(a, b) for a, b in zip(res[key], (e, rel, rel64, plain64))]
+
+    for qN_i, x0_i in ((qN, x0), (rnd(qN), rnd(x0))):
+        b_in = (F, Bm, K, Qi, PC, q, r, qN_i)
+        ks_k = riccati_bwd_lanes(*b_in)
+        ks_p = resolve_bwd_plain(*b_in)
+        hold("bwd", [ks_k], [ks_p], [resolve_bwd_plain(*dbl(b_in))])
+        f_in = (F, Bm, c, K, ks_p, x0_i)
+        hold("fwd", riccati_fwd_lanes(*f_in), resolve_fwd_plain(*f_in),
+             resolve_fwd_plain(*dbl(f_in)))
+    # the pair, through the wrapper, against the plain re-solve
+    pair = rel_err(lqr_resolve_lanes(fact, q, r, qN, x0), lqr_resolve(fact, q, r, qN, x0))
+    sync(ctx.device)
+
+    rows = []
+    b_in = (F, Bm, K, Qi, PC, q, r, qN)
+    f_in = (F, Bm, c, K, resolve_bwd_plain(*b_in), x0)
+    # per scenario-stage: floats written, and flops of the recursion as written
+    for key, name, line, kern, plain, ins, out_floats, flops in (
+        ("bwd", "riccati_bwd_lanes", 46, riccati_bwd_lanes, resolve_bwd_plain, b_in,
+         B * Nt * 6, 13 + 2 * 78 + 6 + 2 * 36 + 2 * 169 + 2 * 78 + 2 * 13),
+        ("fwd", "riccati_fwd_lanes", 64, riccati_fwd_lanes, resolve_fwd_plain, f_in,
+         B * (Nt + 1) * 13 + B * Nt * 6, 2 * 78 + 6 + 2 * 78 + 2 * 169 + 2 * 13),
+    ):
+        b_ms, b_by = bound_ms(nbytes(*ins) + 4 * out_floats, float(B) * Nt * flops)
+        e, rel, rel64, plain64 = res[key]
+        rows.append({
+            "name": name, "route": "cuda", "source": "ft_mpc_torch/csrc/riccati.cu",
+            "replaces": f"ft_mpc_tpu/solvers/lanes_riccati.py:{line}",
+            "max_abs_err": e, "max_rel_err": rel, "tol_rel": TOL_RICCATI,
+            "rel_err_vs_f64": rel64, "plain_rel_err_vs_f64": plain64,
+            "tol_rel_f64": TOL_RICCATI_F64, "pair_rel_err": pair[1],
+            "path_factorization_contiguous": contiguous,
+            "ms": time_ms(lambda: kern(*ins), reps, ctx.device),
+            "plain_ms": time_ms(lambda: plain(*ins), 1, ctx.device),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "shape": f"{label}: B={B} Nt={Nt}",
+        })
+    return rows
+
+
+def card_vs_cpu(device, x0: np.ndarray, stagewise_horizon: int = 0,
+                steps: int = 1) -> dict:
+    """init + `steps` chained whole steps on the card and in the port's CPU
+    run, float32 both, on the first len(x0) bank rows from states x0; the
+    condensed step, or the stagewise one at `stagewise_horizon`.  Every step
+    is compared (from the second on, the warm start, duals and rho carried
+    across steps are held too), and the worst is returned.
 
     The MPC's wrench is compared on every row.  u_phys is compared on the rows
     whose allocation took the same branches on both sides: the wrench lands
@@ -567,24 +736,31 @@ def card_vs_cpu(device, x0: np.ndarray) -> dict:
     rows = len(x0)
     outs = []
     for dev in (device, torch.device("cpu")):
-        ctx = Ctx(dev, torch.float32, rows, x0=x0)
-        o = ctx.step(ctx.init())
-        flags = torch.stack([o.alloc.was_clipped, o.alloc.used_fallback], dim=1)
-        outs.append((o.u_phys.cpu(), o.wrench.cpu(), flags.cpu()))
-    (u_g, w_g, f_g), (u_c, w_c, f_c) = outs
-    same = (f_g == f_c).all(dim=1)
-    return {
-        "finite": bool(torch.isfinite(u_g).all() and torch.isfinite(w_g).all()),
-        "wrench_err": float((w_g - w_c).abs().max()),
-        "u_err": float((u_g - u_c).abs().max(dim=1).values[same].max()) if same.any() else 0.0,
-        "branch_rows": int((~same).sum()),
-        "rows": rows,
-    }
+        ctx = Ctx(dev, torch.float32, rows, x0=x0, stagewise_horizon=stagewise_horizon)
+        warm, per_step = ctx.init(), []
+        for _ in range(steps):
+            o = ctx.step(warm)
+            warm = o.warm
+            flags = torch.stack([o.alloc.was_clipped, o.alloc.used_fallback], dim=1)
+            per_step.append((o.u_phys.cpu(), o.wrench.cpu(), flags.cpu()))
+        outs.append(per_step)
+    res = {"finite": True, "wrench_err": 0.0, "u_err": 0.0, "branch_rows": 0,
+           "rows": rows, "wrench_err_per_step": []}
+    for (u_g, w_g, f_g), (u_c, w_c, f_c) in zip(*outs):
+        same = (f_g == f_c).all(dim=1)
+        w_err = float((w_g - w_c).abs().max())
+        u_err = float((u_g - u_c).abs().max(dim=1).values[same].max()) if same.any() else 0.0
+        res["finite"] &= bool(torch.isfinite(u_g).all() and torch.isfinite(w_g).all())
+        res["wrench_err"] = max(res["wrench_err"], w_err)
+        res["u_err"] = max(res["u_err"], u_err)
+        res["branch_rows"] = max(res["branch_rows"], int((~same).sum()))
+        res["wrench_err_per_step"].append(w_err)
+    return res
 
 
-def profile_steps(ctx: Ctx, warm, path: Path, n: int = 2) -> None:
+def profile_steps(ctx: Ctx, warm, label: str, n: int = 2) -> str:
     """torch.profiler over `n` steps: device time by kernel and host time by
-    the port's ranges, a summary printed and the full table written to `path`."""
+    the port's ranges; the summary is printed, and returned with the full table."""
     from torch.profiler import ProfilerActivity, profile
 
     sync(ctx.device)
@@ -603,7 +779,7 @@ def profile_steps(ctx: Ctx, warm, path: Path, n: int = 2) -> None:
                  if getattr(e, "device_type", None) == cuda
                  and not e.key.startswith("ft_mpc."))
     table = ev.table(sort_by="self_device_time_total", row_limit=60)
-    lines = [f"wall per step {wall_ms:.3f} ms under the profiler, device busy per "
+    lines = [f"{label}: wall per step {wall_ms:.3f} ms under the profiler, device busy per "
              f"step {dev_us / 1e3 / n:.3f} ms ({100 * dev_us / 1e3 / n / wall_ms:.1f}%)"]
     spans = {e.key: dev_time(e) for e in ev if e.key.startswith("ft_mpc.")
              and getattr(e, "device_type", None) == cuda}
@@ -612,16 +788,16 @@ def profile_steps(ctx: Ctx, warm, path: Path, n: int = 2) -> None:
         lines.append(f"{e.key}: host {e.cpu_time_total / 1e3 / n:.3f} ms/step "
                      f"({100 * e.cpu_time_total / 1e3 / n / wall_ms:.1f}%), device span "
                      f"{spans.get(e.key, 0) / 1e3 / n:.3f} ms/step, {e.count // n} per step")
-    path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_text("\n".join(lines) + "\n\n" + table)
     for ln in lines:
         log("profile: " + ln)
+    return "\n".join(lines) + "\n\n" + table + "\n"
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=Path, metavar="FILE",
-                    help="trace two steps with torch.profiler; write the table to FILE")
+                    help="trace two condensed steps and one stagewise step with "
+                         "torch.profiler; write the tables to FILE")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -667,11 +843,12 @@ def main(argv=None) -> int:
     check(main_res["u_shape"] == (BATCH, 16), f"u_phys shape {main_res['u_shape']}")
     check(main_res["max_term_gap"] <= GAP_GATE,
           f"max_term_gap {main_res['max_term_gap']} > {GAP_GATE}")
-    zero = [k for k, v in main_res["launches"].items() if v <= 0]
-    check(not zero, f"kernels never launched on the main path: {zero}")
+    zero = [k for k in CONDENSED_KERNELS if main_res["launches"][k] <= 0]
+    check(not zero, f"kernels never launched on the condensed path: {zero}")
 
+    profiles = []
     if args.profile:
-        profile_steps(ctx, warm, args.profile)
+        profiles.append(profile_steps(ctx, warm, "condensed B=2048 Nt=15"))
 
     rows = []
     rows.append(check_condense(ctx, warm))
@@ -699,6 +876,7 @@ def main(argv=None) -> int:
         ok = (r["max_abs_err"] <= tol) if tol is not None else (r["max_rel_err"] <= r["tol_rel"])
         check(ok and np.isfinite(r["max_abs_err"]) and r.get("branches_equal", True),
               f"{r['name']} ({r['shape']}) disagrees with its plain version")
+    for r in rows:
         r["launches"] = main_res["launches"][r["name"]]
 
     facets = check_alloc_facets(ctx)
@@ -708,18 +886,24 @@ def main(argv=None) -> int:
           and 0 < facets["clipped"] < facets["rows"],
           "allocation kernel decides the hull test wrongly off its threshold")
 
-    am = check_alloc_main(ctx, out)
-    log("alloc on the main path's wrenches (control: plain float32 vs plain "
-        "float64): " + json.dumps(am))
-    check(am["u_err"] <= TOL_ALLOC_MAIN,
-          f"allocation kernel: max |du| {am['u_err']} > {TOL_ALLOC_MAIN} on the main "
-          f"path's rows with equal branches")
-    check(am["branch_rows"] <= MAX_FLIP_SHARE * am["rows"],
-          f"allocation kernel: branches differ on {am['branch_rows']} of {am['rows']} rows")
-    check(am["hull_flips_off_threshold"] == 0,
-          "allocation kernel: the hull test differs on a row off its threshold")
-    check(all(e > FALLBACK_EQ_ERR / 2 for e in am["fallback_flips_kept_eq_err"]),
-          "allocation kernel: the fallback choice differs on a row far from its threshold")
+    def hold_alloc_main(c: Ctx, c_out, path: str) -> None:
+        am = check_alloc_main(c, c_out)
+        log(f"alloc on the {path} path's wrenches (B={am['rows']}; control: plain "
+            "float32 vs plain float64): " + json.dumps(am))
+        check(am["u_err"] <= TOL_ALLOC_MAIN,
+              f"allocation kernel: max |du| {am['u_err']} > {TOL_ALLOC_MAIN} on the "
+              f"{path} path's rows with equal branches")
+        check(am["branch_rows"] <= MAX_FLIP_SHARE * am["rows"],
+              f"allocation kernel, {path} path: branches differ on {am['branch_rows']} "
+              f"of {am['rows']} rows")
+        check(am["hull_flips_off_threshold"] == 0,
+              f"allocation kernel, {path} path: the hull test differs on a row off its "
+              "threshold")
+        check(all(e > FALLBACK_EQ_ERR / 2 for e in am["fallback_flips_kept_eq_err"]),
+              f"allocation kernel, {path} path: the fallback choice differs on a row "
+              "far from its threshold")
+
+    hold_alloc_main(ctx, out, "condensed")
 
     for label, x0 in (("states near the terminal sets", gentle_x0(64)),
                       ("bench states", bench_x0(64))):
@@ -732,6 +916,62 @@ def main(argv=None) -> int:
         check(step["wrench_err"] <= TOL_STEP_U and step["u_err"] <= TOL_STEP_U
               and step["branch_rows"] <= step["rows"] // 8,
               f"card step differs from the CPU port on {label}: {step}")
+
+    del ctx, warm, out  # the condensed path's tensors, before the long horizon
+    torch.cuda.empty_cache()
+    sw = Ctx(device, torch.float32, SW_BATCH, stagewise_horizon=SW_HORIZON)
+    sw_res, sw_warm, sw_out = drive_main_path(sw, SW_WARMUP, SW_STEPS)
+    log("stagewise path: " + json.dumps(sw_res))
+    log(f"stagewise path (B={SW_BATCH}, Nt={SW_HORIZON}): p50 {sw_res['p50_ms']:.3f} ms, "
+        f"p99 {sw_res['p99_ms']:.3f} ms, {sw_res['solves_per_s']:.1f} solves/s, "
+        f"max_r_prim {sw_res['max_r_prim']:.3e}, max_term_gap {sw_res['max_term_gap']:.3e}, "
+        f"launches per step {sw_res['launches_per_step']} (not gated on time); card: {card}")
+    check(sw_res["finite"], "stagewise path produced non-finite outputs")
+    check(sw_res["u_shape"] == (SW_BATCH, 16), f"stagewise u_phys shape {sw_res['u_shape']}")
+    check(sw_res["max_r_prim"] <= SW_R_PRIM_GATE,  # NaN fails the comparison too
+          f"stagewise max_r_prim {sw_res['max_r_prim']} > {SW_R_PRIM_GATE}")
+    check(sw_res["max_term_gap"] <= GAP_GATE,
+          f"stagewise max_term_gap {sw_res['max_term_gap']} > {GAP_GATE}")
+    zero = [k for k in STAGEWISE_KERNELS if sw_res["launches"][k] <= 0]
+    check(not zero, f"kernels never launched on the stagewise path: {zero}")
+    check(sw_res["launches"]["condense_lanes"] == 0 and sw_res["launches"]["admm_lanes"] == 0,
+          "the stagewise path launched a kernel of the condensed path")
+    hold_alloc_main(sw, sw_out, "stagewise")
+    if args.profile:
+        profiles.append(profile_steps(sw, sw_warm, f"stagewise B={SW_BATCH} Nt={SW_HORIZON}", n=1))
+        args.profile.parent.mkdir(parents=True, exist_ok=True)
+        args.profile.write_text("\n".join(profiles))
+
+    captured = capture_riccati(sw, sw_warm)
+    check(sorted(captured) == sorted({SW_BATCH, sw.cfg.cleanup_k}),
+          f"riccati sweeps ran at batch sizes {sorted(captured)}")
+    sw_rows, sw_extra = [], []
+    for B_cap, label in ((SW_BATCH, "stagewise path"), (sw.cfg.cleanup_k, "cleanup")):
+        if B_cap in captured:
+            (sw_rows if B_cap == SW_BATCH else sw_extra).extend(
+                check_riccati(sw, *captured[B_cap], label))
+    for r in sw_rows + sw_extra:
+        log("kernel: " + json.dumps(r))
+        check(r["max_rel_err"] <= r["tol_rel"] and r["pair_rel_err"] <= r["tol_rel"]
+              and r["rel_err_vs_f64"] <= r["tol_rel_f64"] and np.isfinite(r["max_abs_err"]),
+              f"{r['name']} ({r['shape']}) disagrees with its plain version")
+    for r in sw_rows:
+        r["launches"] = sw_res["launches"][r["name"]]
+    rows += sw_rows
+    del captured, sw_warm, sw_out
+
+    B_small, Nt_small = SW_SMALL
+    step = card_vs_cpu(device, long_horizon_x0(B_small), stagewise_horizon=Nt_small,
+                       steps=SW_SMALL_STEPS)
+    log(f"{SW_SMALL_STEPS} chained stagewise steps, card vs CPU port ({B_small} rows, "
+        f"Nt={Nt_small}, float32): max |dwrench| {step['wrench_err']:.3e} (per step "
+        f"{step['wrench_err_per_step']}), max |du_phys| {step['u_err']:.3e} "
+        f"(tol {TOL_STEP_U}) on the rows whose allocation took the same branches; "
+        f"at most {step['branch_rows']} rows on a branch threshold")
+    check(step["finite"], "stagewise card step is not finite")
+    check(step["wrench_err"] <= TOL_STEP_U and step["u_err"] <= TOL_STEP_U
+          and step["branch_rows"] <= step["rows"] // 8,
+          f"stagewise card step differs from the CPU port: {step}")
 
     if failures:
         fail("; ".join(failures))

@@ -1,20 +1,25 @@
-"""Batched spiraling (micro-orbiting) MPC as a real-time-iteration SQP on the
-condensed backend.  Counterpart of the batched subset of
-`ft_mpc_tpu/controllers/spiraling.py`: `init_warmstart(_batch)`,
-`sqp_solve_batch` and `get_control_batch` with `qp_backend='condensed'`.
+"""Batched spiraling (micro-orbiting) MPC as a real-time-iteration SQP.
+Counterpart of the batched subset of `ft_mpc_tpu/controllers/spiraling.py`:
+`init_warmstart(_batch)`, `sqp_solve_batch`, `sqp_solve_batch_stagewise` and
+`get_control_batch` with `qp_backend='condensed'` or `'stagewise'`.
 
 Each control step, per SQP iteration: linearize the RK4 orbit-center
 dynamics along the warm trajectory (`torch.func.vmap(jacfwd)` over the
-flattened (B * Nt) stages), condense (kernel `csrc/condense.cu`), assemble
-the dense 90-variable QP, refresh K^{-1}, run the ADMM kernel, and take a
-3-candidate merit line search.  Then the worst-K scenarios get one
-exact-metric cleanup iteration, and the first input is un-rotated and
-allocated to thrusters (kernel `csrc/alloc.cu`).
+flattened (B * Nt) stages), then
+  * condensed (short horizons): condense (kernel `csrc/condense.cu`),
+    assemble the dense 90-variable QP, refresh K^{-1}, run the ADMM kernel;
+  * stagewise (long horizons, `cfg.stagewise.mode='lanes'`): assemble the
+    banded QP and run the Riccati-in-ADMM solver, whose every x-update is
+    the kernel pair of `csrc/riccati.cu`;
+and take a 3-candidate merit line search.  Then the worst-K scenarios get
+one cleanup iteration with a larger ADMM budget, and the first input is
+un-rotated and allocated to thrusters (kernel `csrc/alloc.cu`).
 
 Functions take batch-leading tensors with the JAX package's shapes; the
 dtype follows the inputs (float64 in the CPU parity tests, float32 on the
 card).  The per-scenario paths (`sqp_solve`, `get_control`,
-`shift_warmstart`) and the stagewise backend are not ported yet.
+`shift_warmstart`), and with them the non-lanes stagewise modes, are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -39,6 +44,11 @@ from ft_mpc_torch.solvers.lanes_alloc import allocate_thrusters_lanes
 from ft_mpc_torch.solvers.lanes_condense import condense_lanes, condense_plain
 from ft_mpc_torch.solvers.lanes_qp import build_K, exact_kinv, solve_mpc_qp_lanes
 from ft_mpc_torch.solvers.mpc_qp import StructuredADMMConfig, StructuredMPCQP
+from ft_mpc_torch.solvers.mpc_qp_stagewise import (
+    StagewiseConfig,
+    StagewiseMPCQP,
+    solve_mpc_qp_stagewise_lanes,
+)
 from ft_mpc_torch.terminal.poly import (
     terminal_gradient,
     terminal_hessian_psd,
@@ -54,12 +64,15 @@ _vmap = torch.func.vmap
 
 
 class MPCConfig(NamedTuple):
-    """Static controller configuration (fields of the batched condensed path)."""
+    """Static controller configuration (fields of the batched paths)."""
 
     horizon: int = 15
     sqp_iters: int = 3
     admm: StructuredADMMConfig = StructuredADMMConfig(iters=30, phases=1, rho=50.0)
-    qp_backend: str = "condensed"  # the only backend ported so far
+    # 'condensed' (dense, states eliminated: short horizons) or 'stagewise'
+    # (Riccati-in-ADMM banded KKT, O(Nt) per iteration: long horizons)
+    qp_backend: str = "condensed"
+    stagewise: StagewiseConfig = StagewiseConfig()
     prox: float = 0.0
     ls_alphas: tuple = (1.0, 0.5, 0.0)
     ls_penalty: float = 1e3
@@ -251,7 +264,11 @@ def _linearize(params, bank: Scenario, cfg: MPCConfig, X, U, u_ref):
         u_ref[:Nt].repeat(B, 1),
     )
     defects = f_vals.reshape(B, Nt, N_X) - X[:, 1:]
-    return A.reshape(B, Nt, N_X, N_X), Bm.reshape(B, Nt, N_X, N_U), defects
+    # contiguous: vmap(jacfwd) hands back strided views, and the kernels that
+    # read the jacobians (condensing once, the Riccati sweeps every ADMM
+    # iteration) would otherwise copy them on every call
+    return (A.reshape(B, Nt, N_X, N_X).contiguous(),
+            Bm.reshape(B, Nt, N_X, N_U).contiguous(), defects)
 
 
 def _ext_rows(weights: MPCWeights, X, S_all, phi_all, stage_offset):
@@ -340,6 +357,67 @@ def _assemble_condensed_batch(params, bank, weights, cfg, X, U, x_ref, u_ref,
     return qp, S_all, phi_all, defects
 
 
+def _assemble_stagewise(params, bank, weights, cfg, X, U, x_ref, u_ref,
+                        hull_A, hull_b, term_A, term_b):
+    """Batched linearization + stagewise (banded-KKT) QP assembly.
+
+    x_ref carries a leading scenario axis (B, Nt+1, 9).  Returns
+    (StagewiseMPCQP with every leaf batch-leading, defects).
+    """
+    Nt = cfg.horizon
+    dtype, dev = X.dtype, X.device
+    B = X.shape[0]
+    pad13 = lambda t: torch.nn.functional.pad(t, (0, N_X - N_OPT))
+
+    with record_function("ft_mpc.linearize"):
+        A_stack, B_stack, defects = _linearize(params, bank, cfg, X, U, u_ref)
+    u_r_bar = _matvec(rot_full_inv(X[:, :-1, 9:13]), u_ref[:Nt])
+    stage_offset = (
+        U + u_r_bar + bank.u_comp[:, None, :] + bank.faulty_force_gen[:, None, :]
+    )
+    h_hull = hull_b[:, None, :] - torch.einsum("bti,bfi->btf", stage_offset, hull_A)
+    Q13 = torch.zeros(N_X, N_X, dtype=dtype, device=dev)
+    Q13[:N_OPT, :N_OPT] = weights.Q
+    e_bar = X[:, :, :N_OPT] - x_ref  # (B, Nt+1, 9)
+    # terminal: half-gradient / half-Hessian of the polynomial V_f (so that
+    # 2 gxN = dV/de; a quadratic V_f gives P e + p/2 and P)
+    with record_function("ft_mpc.terminal"):
+        gV = _vmap(terminal_gradient)(bank.term, e_bar[:, -1])  # (B, 9)
+        HV = _vmap(terminal_hessian_psd)(bank.term, e_bar[:, -1])  # (B, 9, 9)
+    gx = pad13(torch.cat([e_bar[:, :-1] @ weights.Q, 0.5 * gV[:, None]], dim=1))
+    QN13 = torch.nn.functional.pad(0.5 * HV, (0, N_X - N_OPT, 0, N_X - N_OPT))
+    T13 = pad13(term_A)
+    h_term = term_b - torch.einsum("bti,bi->bt", term_A, e_bar[:, -1])
+    h_term = torch.maximum(h_term, cfg.term_relax * h_term)
+
+    # Per-stage state box as a stage-row block C dx_t <= h_box_t (mirrors the
+    # hull block, on states).  Stage Nt is made inert: the box bounds
+    # non-terminal stages only.  A one-sided box still builds both sides.
+    if weights.has_state_box:
+        xlb, xub = _box_bounds(weights, dtype, dev)
+        eye = torch.eye(N_X, dtype=dtype, device=dev)
+        Cx = torch.cat([eye, -eye], dim=0).expand(B, 2 * N_X, N_X)
+        h_box = torch.cat([xub - X[:, 1:], X[:, 1:] - xlb], dim=2)
+        h_box[:, -1] = _BIG
+        h_box = torch.maximum(h_box, cfg.term_relax * h_box)
+    else:
+        Cx = torch.zeros(B, 0, N_X, dtype=dtype, device=dev)
+        h_box = torch.zeros(B, Nt, 0, dtype=dtype, device=dev)
+    if weights.du_max is not None:
+        raise NotImplementedError(
+            "input rate limits (du_max) require cross-stage input coupling; "
+            "use qp_backend='condensed' (dense rate rows) -- the stagewise "
+            "Riccati x-update has no adjacent-stage input block"
+        )
+
+    qp = StagewiseMPCQP(
+        A=A_stack, B=B_stack, c=defects, Qx=Q13.expand(B, N_X, N_X), gx=gx,
+        Ru=weights.R.expand(B, N_U, N_U), gu=U @ weights.R, QxN=QN13,
+        hull_A=hull_A, h_hull=h_hull, T=T13, h_term=h_term, Cx=Cx, h_box=h_box,
+    )
+    return qp, defects
+
+
 def _merit_alpha(params, bank, weights, cfg, X, U, dX, dU, x_ref, u_ref,
                  hull_A, hull_b, term_A, term_b):
     """Batched fixed-candidate l1-merit line search; returns alpha (B,).
@@ -400,6 +478,17 @@ def _per_scenario_ref(bank: Scenario, x_ref, B):
     x_ref = x_ref.expand(B, *x_ref.shape)
     omega = bank.omega_des[:, None, :].to(x_ref.dtype).expand(B, x_ref.shape[1], 3)
     return torch.cat([x_ref[..., :6], omega], dim=-1)
+
+
+def _trajectory_cost(bank: Scenario, weights: MPCWeights, X, U, x_ref):
+    """Running + terminal cost (B,) of (X, U) against x_ref (B, Nt+1, 9)."""
+    e_run = X[:, :-1, :N_OPT] - x_ref[:, :-1]
+    e_N = X[:, -1, :N_OPT] - x_ref[:, -1]
+    return (
+        torch.einsum("bti,ij,btj->b", e_run, weights.Q, e_run)
+        + torch.einsum("bti,ij,btj->b", U, weights.R, U)
+        + _vmap(terminal_value)(bank.term, e_N)
+    )
 
 
 def sqp_solve_batch(params: BodyParams, bank: Scenario, weights: MPCWeights,
@@ -489,24 +578,117 @@ def sqp_solve_batch(params: BodyParams, bank: Scenario, weights: MPCWeights,
             du_norm_f.index_copy_(0, idx, alpha * torch.abs(sol.x).amax(dim=1))
             term_gap_f.index_copy_(0, idx, sol.term_gap)
 
-    e_run = X[:, :-1, :N_OPT] - x_ref[:, :-1]
-    e_N = X[:, -1, :N_OPT] - x_ref[:, -1]
-    cost = (
-        torch.einsum("bti,ij,btj->b", e_run, weights.Q, e_run)
-        + torch.einsum("bti,ij,btj->b", U, weights.R, U)
-        + _vmap(terminal_value)(bank.term, e_N)
-    )
+    cost = _trajectory_cost(bank, weights, X, U, x_ref)
     info = SQPInfo(cost=cost, r_prim=r_prim_f, r_dual=r_dual_f, defect=defect_f,
                    du_norm=du_norm_f, term_gap=term_gap_f)
     return WarmStart(X=X, U=U, y_hull=yh, y_term=yt, rho=rho, kinv=kinv), info
 
 
+def _sqp_batch_stagewise_core(params, bank, weights, cfg, c0, x_ref, u_ref,
+                              warm: WarmStart):
+    """One batched stagewise SQP scan (no cleanup), `cfg.stagewise.mode='lanes'`:
+    batched assembly + `solve_mpc_qp_stagewise_lanes`, whose every ADMM
+    x-update is two kernel launches for the whole bank."""
+    if cfg.stagewise.mode != "lanes":
+        raise NotImplementedError(
+            f"batched stagewise mode {cfg.stagewise.mode!r}: only 'lanes' is "
+            "ported; the other modes run the per-scenario sqp_solve (ROADMAP A6)"
+        )
+    if cfg.sqp_iters < 1:
+        raise ValueError("the batched stagewise SQP needs sqp_iters >= 1")
+    B = c0.shape[0]
+    x_ref = _per_scenario_ref(bank, x_ref, B)
+    geo = _masked_geometry(bank)
+    T_rows = geo[2].shape[-2]
+
+    X = torch.cat([c0[:, None], warm.X[:, 1:]], dim=1)
+    U, yh, yt = warm.U, warm.y_hull, warm.y_term
+    rho = warm.rho.expand(B)
+    for _ in range(cfg.sqp_iters):
+        qp, defects = _assemble_stagewise(params, bank, weights, cfg, X, U, x_ref,
+                                          u_ref, *geo)
+        # warm y_term may carry extra condensed-layout rows (state box); only
+        # the true terminal duals ride through the stagewise solver
+        ssol = solve_mpc_qp_stagewise_lanes(qp, cfg.stagewise, y_hull0=yh,
+                                            y_term0=yt[:, :T_rows], rho0=rho)
+        dU, dX = ssol.dU, ssol.dX[:, 1:]
+        with record_function("ft_mpc.line_search"):
+            alpha = _merit_alpha(params, bank, weights, cfg, X, U, dX, dU, x_ref,
+                                 u_ref, *geo)
+        a = alpha[:, None, None]
+        U = U + a * dU
+        X = torch.cat([X[:, :1], X[:, 1:] + a * dX], dim=1)
+        yh, rho = ssol.y_hull, ssol.rho
+        yt = torch.cat([ssol.y_term, yt[:, T_rows:]], dim=1)
+        defect = torch.abs(defects).amax(dim=(1, 2))
+        du_norm = alpha * torch.abs(dU).amax(dim=(1, 2))
+
+    info = SQPInfo(cost=_trajectory_cost(bank, weights, X, U, x_ref),
+                   r_prim=ssol.r_prim, r_dual=ssol.r_dual, defect=defect,
+                   du_norm=du_norm, term_gap=ssol.term_gap)
+    return WarmStart(X=X, U=U, y_hull=yh, y_term=yt, rho=rho, kinv=warm.kinv), info
+
+
+def _rows(tree, idx):
+    """Rows idx of every tensor leaf of a NamedTuple (None leaves pass)."""
+    return type(tree)(*(None if a is None else a[idx] for a in tree))
+
+
+def _set_rows(tree, idx, rows):
+    """`tree` with rows idx of every tensor leaf replaced (out of place)."""
+    return type(tree)(*(None if a is None else a.index_copy(0, idx, b)
+                        for a, b in zip(tree, rows)))
+
+
+def sqp_solve_batch_stagewise(params: BodyParams, bank: Scenario, weights: MPCWeights,
+                              cfg: MPCConfig, c0, x_ref, u_ref, warm: WarmStart):
+    """Batched SQP on the stagewise (Riccati-in-ADMM) backend + tail cleanup.
+
+    The batched core, then the same worst-K discipline as the condensed
+    backend: the K scenarios with the worst residual key get one extra SQP
+    iteration with a cleanup_iters x cleanup_phases ADMM budget.  warm.kinv
+    stays None: this backend has no condensed metric.
+    """
+    new_warm, info = _sqp_batch_stagewise_core(params, bank, weights, cfg, c0, x_ref,
+                                               u_ref, warm)
+    n_rounds = cfg.cleanup_rounds if (cfg.cleanup_iters > 0 and cfg.cleanup_k > 0) else 0
+    p_ax = params_batch_axes(params)
+    for _ in range(n_rounds):
+        with record_function("ft_mpc.cleanup"):
+            K = min(cfg.cleanup_k, c0.shape[0])
+            # same transient-aware worst-K key as the condensed batch path
+            _, idx = torch.topk(info.r_prim + info.du_norm + info.defect, K)
+            ccfg = cfg._replace(
+                sqp_iters=1,
+                stagewise=cfg.stagewise._replace(
+                    iters=cfg.cleanup_iters, phases=cfg.cleanup_phases, adapt_clip=5.0),
+                cleanup_iters=0,
+            )
+            warm_c, info_c = _sqp_batch_stagewise_core(
+                _params_row(params, p_ax, idx), take_rows(bank, idx), weights, ccfg,
+                c0[idx], x_ref, u_ref, _rows(new_warm, idx),
+            )
+            new_warm = _set_rows(new_warm, idx, warm_c)
+            info = _set_rows(info, idx, info_c)
+    return new_warm, info
+
+
+def _check_backend(cfg: MPCConfig) -> None:
+    if cfg.qp_backend not in ("condensed", "stagewise"):
+        raise ValueError(f"unknown qp_backend {cfg.qp_backend!r}")
+
+
 def init_warmstart_batch(params: BodyParams, bank: Scenario, weights: MPCWeights,
                          cfg: MPCConfig, c0, x_ref, u_ref) -> WarmStart:
-    """Batched warm start plus the exact cold-start inverse ADMM metric."""
-    if cfg.qp_backend != "condensed":
-        raise NotImplementedError(f"qp_backend {cfg.qp_backend!r} is not ported yet")
+    """Batched warm start plus the exact cold-start inverse ADMM metric.
+
+    The stagewise backend factors per stage and has no condensed metric:
+    its warm start keeps kinv=None.
+    """
+    _check_backend(cfg)
     warm = init_warmstart(params, bank, cfg, c0, weights=weights)
+    if cfg.qp_backend == "stagewise":
+        return warm
     hull_A, hull_b, term_A, term_b = _masked_geometry(bank)
     x_ref = _per_scenario_ref(bank, x_ref, c0.shape[0])
     qp, _, _, _ = _assemble_condensed_batch(
@@ -519,17 +701,19 @@ def init_warmstart_batch(params: BodyParams, bank: Scenario, weights: MPCWeights
 
 def get_control_batch(params: BodyParams, bank: Scenario, weights: MPCWeights,
                       cfg: MPCConfig, x0, x_ref, u_ref, warm: WarmStart) -> ControlOutput:
-    """One full control step for a scenario bank (condensed backend).
+    """One full control step for a scenario bank.
 
     x0 (B, 13) robot states; x_ref (Nt+1, 9) / u_ref (Nt+1, 6) shared
     reference windows; warm from `init_warmstart_batch` or the previous step.
     Per-scenario mass/inertia may ride on leading axes of `params`; D and
-    max_thrust stay shared.
+    max_thrust stay shared.  `cfg.qp_backend` routes the SQP: 'condensed'
+    (short horizons) or 'stagewise' (long horizons); the allocation is the
+    same kernel for both.
     """
-    if cfg.qp_backend != "condensed":
-        raise NotImplementedError(f"qp_backend {cfg.qp_backend!r} is not ported yet")
+    _check_backend(cfg)
     c0 = robot_to_center(bank.r, x0)
-    new_warm, info = sqp_solve_batch(params, bank, weights, cfg, c0, x_ref, u_ref, warm)
+    solve = sqp_solve_batch_stagewise if cfg.qp_backend == "stagewise" else sqp_solve_batch
+    new_warm, info = solve(params, bank, weights, cfg, c0, x_ref, u_ref, warm)
     u_nom = _matvec(rot_full_inv(c0[:, 9:13]), u_ref[0])
     u_res = new_warm.U[:, 0] + u_nom + bank.u_comp
     u_res = _matvec(rot_full(bank.beta), u_res)

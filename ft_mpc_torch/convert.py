@@ -2,8 +2,9 @@
 
 A flat dict is keyed by field path ("hull_A", "term.P", "fault.broken"), so
 the leaves of any NamedTuple tree -- the JAX package's `Scenario`,
-`BodyParams`, `MPCWeights`, `WarmStart`, or this port's counterparts, which
-keep the same field names -- round-trip through `np.savez` unchanged.
+`BodyParams`, `MPCWeights`, `WarmStart`, `StagewiseMPCQP`,
+`LQRFactorization`, or this port's counterparts, which keep the same field
+names and batch-leading shapes -- round-trip through `np.savez` unchanged.
 Nothing here imports JAX: `flatten_namedtuple` only reads attributes and
 calls `np.asarray` on the leaves.
 """
@@ -19,6 +20,8 @@ from ft_mpc_torch import resolve_device
 from ft_mpc_torch.controllers.spiraling import MPCWeights, WarmStart
 from ft_mpc_torch.geometry.scenario import Scenario
 from ft_mpc_torch.ops.dynamics import BodyParams, FaultState
+from ft_mpc_torch.solvers.mpc_qp_stagewise import StagewiseMPCQP
+from ft_mpc_torch.solvers.riccati import LQRFactorization
 from ft_mpc_torch.terminal.poly import TerminalPoly
 
 # NamedTuple fields that are themselves NamedTuples
@@ -92,8 +95,17 @@ def weights_from_numpy(flat, device=None, dtype=None) -> MPCWeights:
 
 
 def warmstart_from_numpy(flat, device=None, dtype=None) -> WarmStart:
-    """Warm start; kinv is always float32 (the metric the kernels consume)."""
+    """Warm start; kinv is always float32 (the metric the kernels consume),
+    and stays None for a stagewise warm start, which has none."""
     warm = unflatten_namedtuple(WarmStart, flat, device, dtype)
     if warm.kinv is not None:
         warm = warm._replace(kinv=warm.kinv.to(torch.float32))
     return warm
+
+
+def stagewise_qp_from_numpy(flat, device=None, dtype=None) -> StagewiseMPCQP:
+    return unflatten_namedtuple(StagewiseMPCQP, flat, device, dtype)
+
+
+def lqr_factorization_from_numpy(flat, device=None, dtype=None) -> LQRFactorization:
+    return unflatten_namedtuple(LQRFactorization, flat, device, dtype)

@@ -22,7 +22,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build"
-SOURCES = ("condense", "admm", "alloc")
+SOURCES = ("condense", "admm", "alloc", "riccati")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -125,9 +125,12 @@ def stream_of(t: torch.Tensor) -> int:
 
 def require_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
     """Kernel inputs must be contiguous float32 on the current CUDA device."""
-    dev = torch.cuda.current_device()
     for t in tensors:
-        if t.device.type != "cuda" or t.device.index != dev:
+        # the device type first: a build without CUDA has no current device to ask for
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: tensor on {t.device}, kernel takes cuda tensors")
+        dev = torch.cuda.current_device()
+        if t.device.index != dev:
             raise ValueError(f"{name}: tensor on {t.device}, kernel runs on cuda:{dev}")
         if t.dtype != torch.float32:
             raise ValueError(f"{name}: dtype {t.dtype}, kernel takes float32")

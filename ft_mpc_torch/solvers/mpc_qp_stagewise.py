@@ -1,0 +1,280 @@
+"""Stagewise (banded-KKT) ADMM for the MPC subproblem: the long-horizon
+backend, counterpart of `ft_mpc_tpu/solvers/mpc_qp_stagewise.py`.
+
+States stay variables and the dynamics are hard constraints inside every
+ADMM x-update, which is an LQR solve by Riccati recursion
+(`solvers/riccati.py`): per-iteration cost is O(Nt) and nothing quadratic in
+the horizon is ever built.
+
+Splitting:  min  J(dx, du)   s.t.  dynamics (hard, inside the LQR),
+            z_h = hull_A du_t <= h_hull,   z_T = T dx_N <= h_term,
+            z_b = Cx dx_t <= h_box_t (optional state rows).
+
+Within a phase rho is fixed, so the Riccati quadratic data is factored once
+per phase (`lqr_factor`) and every ADMM iteration is a matvec-only re-solve:
+`lqr_resolve_lanes` in `solve_mpc_qp_stagewise_lanes` (two CUDA kernel
+launches per iteration on the card), the plain `lqr_resolve` in the
+per-scenario `solve_mpc_qp_stagewise`.  Between phases rho adapts per
+scenario by the scaled-residual rule, and (rho, duals) carry across SQP
+iterations and control steps.  The tensor ops around the re-solve are plain
+torch ops, as they are XLA ops in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch.profiler import record_function
+
+from ft_mpc_torch.solvers.lanes_riccati import lqr_resolve_lanes
+from ft_mpc_torch.solvers.riccati import lqr_factor, lqr_resolve
+
+
+class StagewiseMPCQP(NamedTuple):
+    """Stagewise QP data in delta variables around the SQP linearization.
+
+    Objective (matching the condensed assembly in `controllers/spiraling`):
+        sum_{t=1..Nt-1} dx_t' Qx dx_t + 2 gx_t' dx_t
+      + sum_{t=0..Nt-1} du_t' Ru du_t + 2 gu_t' du_t
+      + dx_N' QxN dx_N + gxN' dx_N
+    s.t. dx_{t+1} = A_t dx_t + B_t du_t + c_t,  dx_0 = 0,
+         hull_A du_t <= h_hull_t,   T dx_N <= h_term.
+
+    Shapes are per scenario; the batched solver takes every leaf with a
+    leading batch axis B.
+    """
+
+    A: torch.Tensor  # (Nt, n, n)
+    B: torch.Tensor  # (Nt, n, m)
+    c: torch.Tensor  # (Nt, n) defects
+    Qx: torch.Tensor  # (n, n) stage state cost (embedded 9-d)
+    gx: torch.Tensor  # (Nt+1, n) linear state terms (index 0 unused)
+    Ru: torch.Tensor  # (m, m)
+    gu: torch.Tensor  # (Nt, m)
+    QxN: torch.Tensor  # (n, n)
+    hull_A: torch.Tensor  # (F, m)
+    h_hull: torch.Tensor  # (Nt, F)
+    T: torch.Tensor  # (Tm, n) terminal rows (masked rows zeroed, n-embedded)
+    h_term: torch.Tensor  # (Tm,)
+    # Optional per-stage state-row block Cx dx_t <= h_box_t for t = 1..Nt;
+    # None or a zero-row Cx disables it.
+    Cx: torch.Tensor | None = None  # (S, n)
+    h_box: torch.Tensor | None = None  # (Nt, S)
+
+
+class StagewiseConfig(NamedTuple):
+    iters: int = 40
+    phases: int = 1  # rho re-factorizations; total iterations = iters*phases
+    rho: float = 50.0
+    rho_min: float = 1.0
+    rho_max: float = 1e4
+    # Per-phase rho change bound; tight (1.5) when (rho, duals) are carried
+    # across solves, loose (5.0) for cold solves.
+    adapt_clip: float = 5.0
+    sigma: float = 1e-6
+    alpha: float = 1.6
+    # 'scan': the per-scenario solver with the plain sequential re-solve;
+    # 'lanes': the batched solver on the kernel pair (the batched controller
+    # path).  The JAX package's 'assoc' and 'scan-assoc' are not ported.
+    mode: str = "scan"
+    # Elastic terminal (and box) rows: l1 exact-penalty dual clamp.  Feasible
+    # QPs whose duals stay below the clamp solve unchanged; infeasible
+    # restoration QPs converge to the minimum-violation point with the
+    # violation reported as `term_gap`.  0 disables (hard rows).
+    elastic_y_max: float = 1e3
+
+
+class StagewiseSolution(NamedTuple):
+    dX: torch.Tensor  # (Nt+1, n)
+    dU: torch.Tensor  # (Nt, m)
+    y_hull: torch.Tensor
+    y_term: torch.Tensor
+    rho: torch.Tensor  # adapted penalty, carry into the next solve's rho0
+    r_prim: torch.Tensor
+    r_dual: torch.Tensor
+    # max violation of dual-clamped elastic rows (0 when the restoration
+    # step is feasible; the infeasibility gap otherwise)
+    term_gap: torch.Tensor
+
+
+def _amax(x, dims):
+    return x.abs().amax(dim=dims)
+
+
+def _solve_batched(qp: StagewiseMPCQP, cfg: StagewiseConfig, y_hull0, y_term0, rho0,
+                   on_lanes: bool) -> StagewiseSolution:
+    """The batched solver; the re-solve runs on the kernel pair (`on_lanes`)
+    or as the plain `lqr_resolve` in the input dtype."""
+    B, Nt, n, m = qp.B.shape
+    F = qp.hull_A.shape[-2]
+    dtype, dev = qp.A.dtype, qp.A.device
+    kw = dict(dtype=dtype, device=dev)
+    sigma, alpha, y_max = cfg.sigma, cfg.alpha, cfg.elastic_y_max
+
+    hull_A, T = qp.hull_A, qp.T  # (B, F, m), (B, Tm, n)
+    hull_At, Tt = hull_A.transpose(1, 2), T.transpose(1, 2)
+    AhTAh = hull_At @ hull_A
+    TtT = Tt @ T
+    # The state-row block is guarded statically: with no rows every box term
+    # is dropped (reductions over an empty axis are not defined in torch).
+    has_box = qp.Cx is not None and qp.Cx.shape[-2] > 0
+    if has_box:
+        Cx, h_box = qp.Cx, qp.h_box
+        Cxt = Cx.transpose(1, 2)
+        CtC = Cxt @ Cx
+    else:
+        CtC = torch.zeros(n, n, **kw)
+    eye_n = torch.eye(n, **kw)
+    eye_m = torch.eye(m, **kw)
+    zeros_x = torch.zeros(B, n, **kw)
+    gu2, gx2 = 2.0 * qp.gu, 2.0 * qp.gx[:, 1:]
+
+    def Gx(dX, dU):
+        Gh = dU @ hull_At  # (B, Nt, F)
+        Gt = (T @ dX[:, -1, :, None]).squeeze(-1)  # (B, Tm)
+        Gb = dX[:, 1:] @ Cxt if has_box else None  # (B, Nt, S)
+        return Gh, Gt, Gb
+
+    dX = torch.zeros(B, Nt + 1, n, **kw)
+    dU = torch.zeros(B, Nt, m, **kw)
+    yh = torch.zeros(B, Nt, F, **kw) if y_hull0 is None else y_hull0
+    yt = torch.zeros_like(qp.h_term) if y_term0 is None else y_term0
+    zh = torch.clamp(qp.h_hull, max=0.0)
+    zt = torch.clamp(qp.h_term, max=0.0)
+    yb = torch.zeros_like(h_box) if has_box else None  # box duals start at zero
+    zb = torch.clamp(h_box, max=0.0) if has_box else None
+    if rho0 is None:
+        rho = torch.full((B,), cfg.rho, **kw)
+    else:
+        rho = torch.clamp(torch.as_tensor(rho0, **kw).expand(B),
+                          cfg.rho_min, cfg.rho_max)
+
+    for _ in range(cfg.phases):
+        rho2, rho3 = rho[:, None], rho[:, None, None]
+        # one batched Riccati factorization for the whole phase (rho fixed)
+        with record_function("ft_mpc.lqr_factor"):
+            Q_stage = 2.0 * qp.Qx + sigma * eye_n + rho3 * CtC
+            R_stage = 2.0 * qp.Ru + sigma * eye_m + rho3 * AhTAh
+            QN = 2.0 * qp.QxN + sigma * eye_n + rho3 * (TtT + CtC)
+            fact = lqr_factor(qp.A, qp.B, qp.c, Q_stage, R_stage, QN)
+        soft_t, soft_b = y_max / rho2, y_max / rho3
+
+        with record_function("ft_mpc.stagewise_admm"):
+            for _ in range(cfg.iters):
+                vh = zh - yh / rho3
+                vt = zt - yt / rho2
+                r_lin = gu2 - sigma * dU - rho3 * (vh @ hull_A)
+                q_lin = gx2 - sigma * dX[:, 1:]
+                if has_box:
+                    q_lin = q_lin - rho3 * ((zb - yb / rho3) @ Cx)
+                qN_lin = q_lin[:, -1] - rho2 * (Tt @ vt[:, :, None]).squeeze(-1)
+                q_full = torch.cat([zeros_x[:, None], q_lin[:, :-1]], dim=1)
+                if on_lanes:
+                    dX_t, dU_t = lqr_resolve_lanes(fact, q_full, r_lin, qN_lin, zeros_x)
+                else:
+                    dX_t, dU_t = lqr_resolve(fact, q_full, r_lin, qN_lin, zeros_x)
+                dX = alpha * dX_t + (1 - alpha) * dX
+                dU = alpha * dU_t + (1 - alpha) * dU
+                Gh_t, Gt_t, Gb_t = Gx(dX_t, dU_t)
+                zh_hat = alpha * Gh_t + (1 - alpha) * zh
+                zt_hat = alpha * Gt_t + (1 - alpha) * zt
+                zh = torch.minimum(zh_hat + yh / rho3, qp.h_hull)
+                vt_z = zt_hat + yt / rho2
+                if y_max > 0:
+                    # exact hinge-penalty prox: consensus converges on
+                    # infeasible rows, the dual saturates at y_max
+                    zt = torch.where(vt_z > qp.h_term + soft_t, vt_z - soft_t,
+                                     torch.minimum(vt_z, qp.h_term))
+                else:
+                    zt = torch.minimum(vt_z, qp.h_term)
+                yh = yh + rho3 * (zh_hat - zh)
+                yt = yt + rho2 * (zt_hat - zt)
+                if y_max > 0:
+                    yt = torch.clamp(yt, 0.0, y_max)
+                if has_box:
+                    zb_hat = alpha * Gb_t + (1 - alpha) * zb
+                    vb_z = zb_hat + yb / rho3
+                    if y_max > 0:
+                        zb = torch.where(vb_z > h_box + soft_b, vb_z - soft_b,
+                                         torch.minimum(vb_z, h_box))
+                    else:
+                        zb = torch.minimum(vb_z, h_box)
+                    yb = yb + rho3 * (zb_hat - zb)
+                    if y_max > 0:
+                        yb = torch.clamp(yb, 0.0, y_max)
+
+        # scaled-residual rho adaptation; the consensus residual is honest
+        # on elastic rows, the restoration gap is reported for
+        # dual-saturated rows
+        Gh, Gt, Gb = Gx(dX, dU)
+        if y_max > 0:
+            over = torch.clamp(Gt - qp.h_term, min=0.0)
+            term_gap = torch.where(yt >= 0.999 * y_max, over, 0.0).amax(dim=1)
+            if has_box:
+                over_b = torch.clamp(Gb - h_box, min=0.0)
+                term_gap = torch.maximum(
+                    term_gap,
+                    torch.where(yb >= 0.999 * y_max, over_b, 0.0).amax(dim=(1, 2)),
+                )
+        else:
+            term_gap = torch.zeros(B, **kw)
+        r_prim = torch.maximum(_amax(Gh - zh, (1, 2)), _amax(Gt - zt, 1))
+        if has_box:
+            r_prim = torch.maximum(r_prim, _amax(Gb - zb, (1, 2)))
+        dURu2 = 2.0 * (dU @ qp.Ru)
+        r_dual = _amax(dURu2 + gu2 + yh @ hull_A, (1, 2))
+        prim_scale = torch.clamp(
+            torch.maximum(_amax(Gh, (1, 2)), _amax(zh, (1, 2))), min=1e-6)
+        dual_scale = torch.clamp(_amax(dURu2, (1, 2)), min=1e-6)
+        ratio = (r_prim / prim_scale) / torch.clamp(r_dual / dual_scale, min=1e-12)
+        factor = torch.clamp(torch.sqrt(ratio), 1.0 / cfg.adapt_clip, cfg.adapt_clip)
+        # freeze once converged: the ratio is noise there and a carried rho
+        # would random-walk
+        factor = torch.where(r_prim <= 1e-4, 1.0, factor)
+        rho = torch.clamp(rho * factor, cfg.rho_min, cfg.rho_max)
+
+    return StagewiseSolution(dX=dX, dU=dU, y_hull=yh, y_term=yt, rho=rho,
+                             r_prim=r_prim, r_dual=r_dual, term_gap=term_gap)
+
+
+def solve_mpc_qp_stagewise_lanes(
+    qp: StagewiseMPCQP,  # every leaf with a leading batch axis B
+    cfg: StagewiseConfig = StagewiseConfig(),
+    y_hull0: torch.Tensor | None = None,
+    y_term0: torch.Tensor | None = None,
+    rho0: torch.Tensor | None = None,
+) -> StagewiseSolution:
+    """Batched stagewise solve on the kernel-pair LQR re-solve.
+
+    Same per-phase sequential factorization, elastic hinge prox and rho rule
+    as the per-scenario solver with mode='scan', per-scenario rho (B,); every
+    ADMM x-update is `lqr_resolve_lanes`.  `cfg.mode` is not read.
+    """
+    if cfg.phases < 1:
+        raise ValueError("solve_mpc_qp_stagewise_lanes needs phases >= 1")
+    return _solve_batched(qp, cfg, y_hull0, y_term0, rho0, on_lanes=True)
+
+
+def solve_mpc_qp_stagewise(
+    qp: StagewiseMPCQP,
+    cfg: StagewiseConfig = StagewiseConfig(),
+    y_hull0: torch.Tensor | None = None,
+    y_term0: torch.Tensor | None = None,
+    rho0: torch.Tensor | None = None,
+) -> StagewiseSolution:
+    """Per-scenario stagewise solve (mode='scan'): the batched solver at
+    B = 1 with the plain `lqr_resolve` in the input dtype."""
+    if cfg.mode != "scan":
+        raise NotImplementedError(
+            f"stagewise mode {cfg.mode!r} on the per-scenario solver: the "
+            "associative-scan re-solves are not ported (ROADMAP A6)"
+        )
+    if cfg.phases < 1:
+        raise ValueError("solve_mpc_qp_stagewise needs phases >= 1")
+    lead = lambda x: None if x is None else x[None]
+    sol = _solve_batched(
+        StagewiseMPCQP(*(lead(x) for x in qp)), cfg, lead(y_hull0), lead(y_term0),
+        None if rho0 is None else torch.as_tensor(rho0).reshape(1), on_lanes=False,
+    )
+    return StagewiseSolution(*(x[0] for x in sol))

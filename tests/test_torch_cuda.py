@@ -10,7 +10,9 @@ Tolerances: both sides are float32 on the card and differ only in summation
 order.  condense rtol 1e-5 (a 15-step recursion of 13-term sums); ADMM x
 atol 5e-5 and y atol 5e-4 (`tests/test_lanes.py:61-64`); allocation u atol
 2e-3 N (`tests/test_lanes_alloc.py:75-78`); a whole control step u_phys
-atol 2e-2 N (`tests/test_lanes.py:174-178`).
+atol 2e-2 N (`tests/test_lanes.py:174-178`); the Riccati sweeps atol 2e-5 on
+O(1) data (`tests/test_stagewise.py:399-401`), over 240 stages too because
+the closed loop contracts.
 """
 
 from __future__ import annotations
@@ -25,7 +27,10 @@ from ft_mpc_torch.ops.dynamics import BodyParams
 from ft_mpc_torch.solvers import lanes_alloc as la
 from ft_mpc_torch.solvers import lanes_condense as lc
 from ft_mpc_torch.solvers import lanes_qp as lq
+from ft_mpc_torch.solvers import lanes_riccati as lr
+from ft_mpc_torch.solvers import riccati as rc
 from ft_mpc_torch.solvers.mpc_qp import StructuredADMMConfig, StructuredMPCQP
+from ft_mpc_torch.solvers.mpc_qp_stagewise import StagewiseConfig
 from ft_mpc_torch.utils.trajectory import generate_trajectory, prepare_center_trajectory
 
 torch.set_num_threads(1)
@@ -171,4 +176,85 @@ def test_control_step_card_matches_cpu(dev):
     branch = lambda o: torch.stack([o.alloc.was_clipped, o.alloc.used_fallback], 1).cpu()
     same = (branch(outs[0]) == branch(outs[1])).all(dim=1).numpy()
     assert same.sum() >= B - B // 8
+    np.testing.assert_allclose(np_(outs[0].u_phys)[same], np_(outs[1].u_phys)[same], atol=2e-2)
+
+
+def riccati_case(gen, B, Nt, device):
+    """A random well-posed LQR factorization (float32, on `device`) and linear
+    terms with non-zero qN and x0."""
+    c = lambda a: torch.as_tensor(a, dtype=F32, device=device)
+    A = 0.95 * np.eye(13) + 0.04 * gen.standard_normal((B, Nt, 13, 13))
+    Bm = 0.3 * gen.standard_normal((B, Nt, 13, 6))
+    d = 0.05 * gen.standard_normal((B, Nt, 13))
+    fact = rc.lqr_factor(c(A), c(Bm), c(d), c(0.5 * np.eye(13)), c(0.2 * np.eye(6)),
+                         c(np.eye(13)).expand(B, 13, 13))
+    lin = [c(gen.standard_normal(sh)) for sh in ((B, Nt, 13), (B, Nt, 6), (B, 13), (B, 13))]
+    return fact, lin
+
+
+@pytest.mark.parametrize("B,Nt", [(70, 240), (5, 1), (3, 7)])
+def test_riccati_kernels_match_plain(dev, gen, B, Nt):
+    """Each sweep kernel against its plain half, and the pair through
+    `lqr_resolve_lanes` against `lqr_resolve`; Nt = 1 and 7 end inside the
+    kernels' prefetch ring, Nt = 240 wraps it 60 times."""
+    f, (q, r, qN, x0) = riccati_case(gen, B, Nt, dev)
+    n0 = (lr.riccati_bwd_lanes.launches, lr.riccati_fwd_lanes.launches)
+    ks = lr.riccati_bwd_lanes(f.F, f.B, f.K, f.Quu_inv, f.PC, q, r, qN)
+    ks_ref = rc.resolve_bwd_plain(f.F, f.B, f.K, f.Quu_inv, f.PC, q, r, qN)
+    X, U = lr.riccati_fwd_lanes(f.F, f.B, f.c, f.K, ks_ref, x0)
+    torch.cuda.synchronize()
+    assert (lr.riccati_bwd_lanes.launches, lr.riccati_fwd_lanes.launches) == (n0[0] + 1, n0[1] + 1)
+    X_ref, U_ref = rc.resolve_fwd_plain(f.F, f.B, f.c, f.K, ks_ref, x0)
+    assert X.shape == (B, Nt + 1, 13) and U.shape == (B, Nt, 6)
+    np.testing.assert_allclose(np_(ks), np_(ks_ref), atol=2e-5)
+    np.testing.assert_allclose(np_(X), np_(X_ref), atol=2e-5)
+    np.testing.assert_allclose(np_(U), np_(U_ref), atol=2e-5)
+    np.testing.assert_array_equal(np_(X[:, 0]), np_(x0))
+    f64 = rc.LQRFactorization(*(t.double() for t in f))  # float32 inside, cast back
+    Xp, Up = lr.lqr_resolve_lanes(f64, q.double(), r.double(), qN.double(), x0.double())
+    assert Xp.dtype == torch.float64
+    Xr, Ur = rc.lqr_resolve(f, q, r, qN, x0)
+    np.testing.assert_allclose(np_(Xp), np_(Xr), atol=2e-5)
+    np.testing.assert_allclose(np_(Up), np_(Ur), atol=2e-5)
+    with pytest.raises(ValueError):
+        lr.riccati_bwd_lanes(f.F.double(), f.B, f.K, f.Quu_inv, f.PC, q, r, qN)
+    with pytest.raises(ValueError):
+        lr.riccati_fwd_lanes(f.F, f.B, f.c, f.K, ks_ref[:, :-1] if Nt > 1 else ks_ref[:1], x0)
+
+
+def test_stagewise_step_card_matches_cpu(dev):
+    """One stagewise step (mode 'lanes', worst-2 cleanup) on 8 rows: card
+    (sweep kernels) vs CPU (plain sweeps)."""
+    B, Nt = 8, 30
+    cfg = sp.MPCConfig(
+        horizon=Nt, sqp_iters=2, qp_backend="stagewise", cleanup_iters=80, cleanup_k=2,
+        stagewise=StagewiseConfig(iters=40, phases=1, rho=50.0, adapt_clip=1.5, mode="lanes"),
+    )
+    traj = generate_trajectory("hover", 0.1, 30)
+    xr, ur = prepare_center_trajectory(traj, np.array([0.0, 0.0, 0.6]), 16.8, 0.1, Nt + 1)
+    rng = np.random.default_rng(0)
+    x0 = np.zeros((B, 13))
+    x0[:, 0:3] = rng.uniform(-0.4, 0.4, (B, 3))
+    x0[:, 9] = 1.0
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        t = lambda a: torch.as_tensor(a, dtype=F32, device=device)
+        bank = _bank(B, device)
+        params = BodyParams.default(0.1, device=device)
+        w = sp.MPCWeights.from_diagonals([1] * 6 + [2] * 3, [0.1] * 3 + [0.01] * 3,
+                                         device=device)
+        x0_t, x_ref, u_ref = t(x0), t(xr[: Nt + 1]), t(ur[: Nt + 1])
+        warm = sp.init_warmstart_batch(params, bank, w, cfg, sp.robot_to_center(bank.r, x0_t),
+                                       x_ref, u_ref)
+        assert warm.kinv is None
+        launches = lr.riccati_bwd_lanes.launches
+        outs.append(sp.get_control_batch(params, bank, w, cfg, x0_t, x_ref, u_ref, warm))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert lr.riccati_bwd_lanes.launches == launches + 2 * 40 + 2 * 80
+    assert torch.isfinite(outs[0].u_phys).all()
+    np.testing.assert_allclose(np_(outs[0].wrench), np_(outs[1].wrench), atol=2e-2)
+    branch = lambda o: torch.stack([o.alloc.was_clipped, o.alloc.used_fallback], 1).cpu()
+    same = (branch(outs[0]) == branch(outs[1])).all(dim=1).numpy()
+    assert same.sum() >= B - 1
     np.testing.assert_allclose(np_(outs[0].u_phys)[same], np_(outs[1].u_phys)[same], atol=2e-2)

@@ -95,7 +95,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'ft_mpc_tpu'))]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 15, names\n"
+        "assert len(names) >= 22, names\n"
         "print(len(names))\n"
     )
     env = dict(os.environ)
