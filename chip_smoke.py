@@ -15,8 +15,10 @@
    before and read just after.
 3. Holds each kernel against its plain PyTorch version on the card, at the
    main path's shapes, and times both (CUDA events around back-to-back
-   calls, median of 3 rounds).  The allocation kernel is also held at its
-   hull test's threshold and on the main path's own wrenches.
+   calls, median of 3 rounds); each kernel line carries its share of the
+   bound (bound_ms / ms), and ADMM's its us per iteration.  The allocation
+   kernel is also held at its hull test's threshold and on the main path's
+   own wrenches.
 4. Compares one whole step on the card with the port's CPU run on 64 rows,
    from states near the terminal sets and from the bench's states.
 5. Drives the stagewise (long-horizon) path at the largest point of
@@ -26,9 +28,9 @@
    before and read just after; then holds the two Riccati sweep kernels,
    each against its plain half, on the factorization and linear terms that
    path last gave them (B=512 and the cleanup's B=64), the allocation
-   kernel on that path's own wrenches (B=512), and compares two chained
-   stagewise steps on the card with the CPU run at B=32, horizon 60.  The
-   path's max_r_prim and max_term_gap are gated.
+   kernel on that path's own wrenches (B=512, held and timed), and
+   compares two chained stagewise steps on the card with the CPU run at
+   B=32, horizon 60.  The path's max_r_prim and max_term_gap are gated.
 
 Prints the card's name and power limit, one JSON line with every kernel's
 numbers, and as its last line {"ok": true, "device": {...}}.  Exits with a
@@ -444,11 +446,12 @@ def check_admm(ctx: Ctx, args, iters, label, reps=10) -> dict:
     B, Nt, F = args[2].shape
     T = args[4].shape[1]
     b_ms, b_by = bound_ms(nbytes(*args, *out), admm_flops(B, Nt, F, T, iters))
+    ms = time_ms(run, reps, ctx.device)
     return {
         "name": "admm_lanes", "route": "cuda", "source": "ft_mpc_torch/csrc/admm.cu",
         "replaces": "ft_mpc_tpu/solvers/lanes_qp.py:181",
         "max_abs_err": err, "max_rel_err": rel, "tol_rel": TOL_ADMM,
-        "ms": time_ms(run, reps, ctx.device),
+        "ms": ms, "us_per_iter": 1e3 * ms / iters,
         "plain_ms": time_ms(plain, 1, ctx.device),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": f"{label}: B={B} Nt={Nt} F={F} T={T} iters={iters}",
@@ -539,18 +542,26 @@ def check_alloc(ctx: Ctx) -> dict:
     args = alloc_args(ctx, rng.uniform(-0.5, 0.5, (B, 6)))
     got, ref = _alloc_cuda(*args, *ALLOC_HYPER), alloc_plain(*args, *ALLOC_HYPER)
     sync(ctx.device)
-    F = args[5].shape[1]
+    return {**alloc_timing(ctx, args, got, "B={B} F={F}"),
+            "max_abs_err": float((got[0] - ref[0]).abs().max()), "tol": TOL_ALLOC,
+            "branches_equal": bool(torch.equal(got[2][:, :2], ref[2][:, :2]))}
+
+
+def alloc_timing(ctx: Ctx, args, got, shape: str) -> dict:
+    """Kernel 3's row: its time and its plain version's on `args`, beside
+    the bound; `shape` is formatted with B and F."""
+    from ft_mpc_torch.solvers.lanes_alloc import _alloc_cuda, alloc_plain
+
+    B, F = args[5].shape
     b_ms, b_by = bound_ms(nbytes(*args, *got), alloc_flops(B, F, 60, 40))
     return {
         "name": "allocate_thrusters_lanes", "route": "cuda",
         "source": "ft_mpc_torch/csrc/alloc.cu",
         "replaces": "ft_mpc_tpu/solvers/lanes_alloc.py:67",
-        "max_abs_err": float((got[0] - ref[0]).abs().max()), "tol": TOL_ALLOC,
-        "branches_equal": bool(torch.equal(got[2][:, :2], ref[2][:, :2])),
         "ms": time_ms(lambda: _alloc_cuda(*args, *ALLOC_HYPER), 20, ctx.device),
         "plain_ms": time_ms(lambda: alloc_plain(*args, *ALLOC_HYPER), 1, ctx.device),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "shape": f"B={B} F={F}",
+        "shape": shape.format(B=B, F=F),
     }
 
 
@@ -620,6 +631,22 @@ def check_alloc_main(ctx: Ctx, out) -> dict:
         "control_branch_rows": int((~same_c).sum()), "control_u_err": err_c,
         "kernel_vs_f64_branch_rows": int((~same_k).sum()), "kernel_vs_f64_u_err": err_k,
     }
+
+
+def time_alloc_main(ctx: Ctx, out, label: str) -> dict:
+    """Kernel 3 timed on a path's own wrenches (its batch and bank rows)."""
+    from ft_mpc_torch.solvers.lanes_alloc import _alloc_cuda
+
+    args = alloc_args(ctx, out.wrench)
+    got = _alloc_cuda(*args, *ALLOC_HYPER)
+    sync(ctx.device)
+    return alloc_timing(ctx, args, got, label + ": B={B} F={F}, the path's own wrenches")
+
+
+def with_share(row: dict) -> dict:
+    """The row with its share of the bound (bound_ms / ms) beside ms."""
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    return row
 
 
 def capture_riccati(ctx: Ctx, warm) -> dict:
@@ -870,7 +897,7 @@ def main(argv=None) -> int:
     ]
     rows.append(check_alloc(ctx))
     for r in rows + extra:
-        log("kernel: " + json.dumps(r))
+        log("kernel: " + json.dumps(with_share(r)))
     for r in rows + extra:
         tol = r.get("tol")
         ok = (r["max_abs_err"] <= tol) if tol is not None else (r["max_rel_err"] <= r["tol_rel"])
@@ -937,6 +964,7 @@ def main(argv=None) -> int:
     check(sw_res["launches"]["condense_lanes"] == 0 and sw_res["launches"]["admm_lanes"] == 0,
           "the stagewise path launched a kernel of the condensed path")
     hold_alloc_main(sw, sw_out, "stagewise")
+    log("kernel: " + json.dumps(with_share(time_alloc_main(sw, sw_out, "stagewise path"))))
     if args.profile:
         profiles.append(profile_steps(sw, sw_warm, f"stagewise B={SW_BATCH} Nt={SW_HORIZON}", n=1))
         args.profile.parent.mkdir(parents=True, exist_ok=True)
@@ -951,7 +979,7 @@ def main(argv=None) -> int:
             (sw_rows if B_cap == SW_BATCH else sw_extra).extend(
                 check_riccati(sw, *captured[B_cap], label))
     for r in sw_rows + sw_extra:
-        log("kernel: " + json.dumps(r))
+        log("kernel: " + json.dumps(with_share(r)))
         check(r["max_rel_err"] <= r["tol_rel"] and r["pair_rel_err"] <= r["tol_rel"]
               and r["rel_err_vs_f64"] <= r["tol_rel_f64"] and np.isfinite(r["max_abs_err"]),
               f"{r['name']} ({r['shape']}) disagrees with its plain version")

@@ -1,0 +1,189 @@
+#!/usr/bin/env python3
+"""Time two builds of the condensing and ADMM kernels on one card, in turns.
+
+    python3 kernel_ab.py OLD_ROOT     # from the root of a checkout
+
+OLD_ROOT is the root of another checkout of the repo (for example a `git
+archive` of the parent commit).  Its `ft_mpc_torch/csrc/condense.cu` and
+`admm.cu` are built with the same nvcc flags into OLD_ROOT/build and loaded
+beside this checkout's own build.  Both are called through the same ctypes
+code on the same inputs, the condensed main path's (`chip_smoke.py`: B=2048,
+Nt=15, after init and 12 chained steps):
+- condense on the stage jacobians of the final warm start;
+- ADMM on the QP of the final warm start at T=64 (60 iterations), on the
+  worst 256 rows as the cleanup runs it (600 iterations), and with the
+  state-box and rate rows (T=596, 60 iterations).
+Each case is timed old, new, new, old (CUDA events, median of 3 rounds of
+back-to-back calls each), and both outputs are held against the plain
+version.  Prints the card's name and power limit and one JSON line per case.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parent
+sys.path.insert(0, str(REPO))
+
+import chip_smoke as cs  # noqa: E402
+
+CONDENSE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+ADMM_ARGS = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 4
+             + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                ctypes.c_void_p])
+
+
+def build_old(root: Path) -> dict:
+    """{name: (condense_f32 or admm_f32 of OLD_ROOT)}, built in parallel."""
+    from ft_mpc_torch import kernels
+
+    out_dir = root / "build"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in ("condense", "admm"):
+        so = out_dir / f"{name}-ab.so"
+        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(so),
+               str(root / "ft_mpc_torch" / "csrc" / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), so)
+    fns = {}
+    for name, (proc, so) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"old {name} build failed:\n{text}")
+        usage = [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
+        print(f"ptxas old {name}: " + " | ".join(usage), flush=True)
+        fn = getattr(ctypes.CDLL(str(so)), f"{name}_f32")
+        fn.argtypes = CONDENSE_ARGS if name == "condense" else ADMM_ARGS
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def call_condense(fn, A, Bm, d):
+    from ft_mpc_torch import kernels
+
+    B, Nt = A.shape[:2]
+    S = torch.empty((B, Nt, 13, 6 * Nt), dtype=torch.float32, device=A.device)
+    phi = torch.empty((B, Nt, 13), dtype=torch.float32, device=A.device)
+    err = fn(A.data_ptr(), Bm.data_ptr(), d.data_ptr(), S.data_ptr(), phi.data_ptr(),
+             B, Nt, kernels.stream_of(A))
+    if err:
+        raise RuntimeError(f"condense_f32: CUDA error {err}")
+    return S, phi
+
+
+def call_admm(fn, args, sigma, alpha, iters, y_max):
+    from ft_mpc_torch import kernels
+
+    outs = [torch.empty_like(t) for t in args[6:11]]
+    B, Nt, F = args[2].shape
+    T = args[4].shape[1]
+    err = fn(*(t.data_ptr() for t in args), *(t.data_ptr() for t in outs), B, Nt, F, T,
+             float(sigma), float(alpha), int(iters), float(y_max), kernels.stream_of(args[0]))
+    if err:
+        raise RuntimeError(f"admm_f32: CUDA error {err}")
+    return outs
+
+
+def in_turns(old, new, reps, device) -> dict:
+    """ms of each side, timed old, new, new, old."""
+    t = [cs.time_ms(f, reps, device) for f in (old, new, new, old)]
+    o, nw = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    return {"old_ms": o, "new_ms": nw, "speedup": o / nw, "turns_ms": t}
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if len(argv) != 1:
+        print(__doc__, file=sys.stderr)
+        return 2
+    old_root = Path(argv[0]).resolve()
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    import ft_mpc_torch
+    from ft_mpc_torch import kernels
+    from ft_mpc_torch.solvers.lanes_condense import condense_plain
+    from ft_mpc_torch.solvers.lanes_qp import admm_plain
+
+    ft_mpc_torch.pin_fp32_matmuls()
+    device = torch.device("cuda", 0)
+    print(f"card: {cs.card_line()}", flush=True)
+    cs.build_kernels()
+    old = build_old(old_root)
+    new = {"condense": kernels.function("condense", "condense_f32", CONDENSE_ARGS),
+           "admm": kernels.function("admm", "admm_f32", ADMM_ARGS)}
+
+    ctx = cs.Ctx(device, torch.float32, cs.BATCH)
+    _, warm, out = cs.drive_main_path(ctx, 10, 2)
+    results = []
+
+    sp = ctx.sp
+    X = torch.cat([sp.robot_to_center(ctx.bank.r, ctx.x0)[:, None], warm.X[:, 1:]], dim=1)
+    A, Bm, d = (t.float().contiguous() for t in
+                sp._linearize(ctx.params, ctx.bank, ctx.cfg, X, warm.U, ctx.u_ref))
+    ref = condense_plain(A, Bm, d)
+    errs = [cs.rel_err(call_condense(fn, A, Bm, d), ref)[0]
+            for fn in (old["condense"], new["condense"])]
+    tol_condense = cs.TOL_CONDENSE * max(1.0, float(ref[0].abs().max()), float(ref[1].abs().max()))
+    B, Nt = A.shape[:2]
+    b_ms, b_by = cs.bound_ms(cs.nbytes(A, Bm, d, *ref),
+                             B * Nt * (2 * 13 * 13 * 6 * Nt + 2 * 13 * 13 + 13 + 13 * 6))
+    res = {"kernel": "condense", "shape": f"B={B} Nt={Nt}", "bound_ms": b_ms, "bound_by": b_by,
+           "old_max_abs_err": errs[0], "new_max_abs_err": errs[1], "tol": tol_condense,
+           **in_turns(lambda: call_condense(old["condense"], A, Bm, d),
+                      lambda: call_condense(new["condense"], A, Bm, d), 20, device)}
+    results.append(res)
+
+    x_lb, x_ub = np.full(13, -1e8), np.full(13, 1e8)
+    x_lb[3:6], x_ub[3:6] = -1.0, 1.0  # chip_smoke.py's box and rate rows
+    boxed = sp.MPCWeights.from_diagonals(cs.Q_DIAG, cs.R_DIAG, x_lb=x_lb, x_ub=x_ub,
+                                         du_max=np.full(6, 0.5), dtype=torch.float32,
+                                         device=device)
+    c = ctx.cfg.admm
+    worst = torch.topk(out.info.r_prim, 256).indices
+    for label, weights, rows, iters, reps in (
+            ("main path T=64", ctx.weights, None, c.iters, 10),
+            ("cleanup K=256", ctx.weights, worst, ctx.cfg.cleanup_iters, 3),
+            ("box and rate rows T>64", boxed, None, c.iters, 3)):
+        args = cs.admm_inputs(ctx, warm, weights, rows=rows)
+        hyper = (c.sigma, c.alpha, iters, c.elastic_y_max)
+        ref = admm_plain(*args, *hyper)
+        rel = [cs.rel_err(call_admm(fn, args, *hyper), ref)[1]
+               for fn in (old["admm"], new["admm"])]
+        B, Nt, F = args[2].shape
+        T = args[4].shape[1]
+        b_ms, b_by = cs.bound_ms(cs.nbytes(*args, *ref), cs.admm_flops(B, Nt, F, T, iters))
+        res = {"kernel": "admm", "shape": f"{label}: B={B} Nt={Nt} F={F} T={T} iters={iters}",
+               "bound_ms": b_ms, "bound_by": b_by, "old_max_rel_err": rel[0],
+               "new_max_rel_err": rel[1],
+               **in_turns(lambda: call_admm(old["admm"], args, *hyper),
+                          lambda: call_admm(new["admm"], args, *hyper), reps, device)}
+        res["old_us_per_iter"] = 1e3 * res["old_ms"] / iters
+        res["new_us_per_iter"] = 1e3 * res["new_ms"] / iters
+        results.append(res)
+    cs.sync(device)
+
+    ok = True
+    for r in results:
+        r["old_bound_share"] = r["bound_ms"] / r["old_ms"]
+        r["new_bound_share"] = r["bound_ms"] / r["new_ms"]
+        print("ab: " + json.dumps(r), flush=True)
+        if r["kernel"] == "condense":
+            ok &= r["new_max_abs_err"] <= r["tol"]
+        else:
+            ok &= r["new_max_rel_err"] <= cs.TOL_ADMM
+    print(f"card: {cs.card_line()}", flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -57,9 +57,16 @@ def np_(t):
     return t.detach().cpu().double().numpy()
 
 
-def test_condense_kernel_matches_plain(dev, gen):
-    B, Nt = 300, 15
-    A = np.eye(13) + 0.08 * gen.standard_normal((B, Nt, 13, 13))
+@pytest.mark.parametrize("B,Nt", [(300, 15), (2048, 15), (5, 15), (1, 1), (5, 1), (5, 2),
+                                  (1, 2), (2, 86), (3, 240)])
+def test_condense_kernel_matches_plain(dev, gen, B, Nt):
+    """One thread per two columns of S (and one for phi), at most 256 a
+    block: Nt = 1 and 2 fill part of one warp, Nt = 86 (259 threads) puts 3
+    in a second block, Nt = 240 takes 3 blocks a scenario.  Long horizons
+    get a contracting A (as riccati_case): a recursion that grows over 240
+    stages leaves its small entries to the summation order."""
+    A = (np.eye(13) + 0.08 * gen.standard_normal((B, Nt, 13, 13)) if Nt <= 15 else
+         0.95 * np.eye(13) + 0.04 * gen.standard_normal((B, Nt, 13, 13)))
     Bm = 0.1 * gen.standard_normal((B, Nt, 13, 6))
     d = 0.01 * gen.standard_normal((B, Nt, 13))
     args = [torch.as_tensor(x, dtype=F32, device=dev) for x in (A, Bm, d)]
@@ -74,17 +81,25 @@ def test_condense_kernel_matches_plain(dev, gen):
         lc._condense_cuda(args[0].double(), args[1], args[2])
 
 
-def admm_case(gen, T, device, B=260, Nt=15, F=32):
+def admm_case(gen, T, device, B=260, Nt=15, F=32, masked=False):
     """A random QP with its exact metric K^-1 (`exact_kinv`, whose output is
-    not exactly symmetric), cold-started as `solve_mpc_qp_lanes` does."""
+    not exactly symmetric), cold-started as `solve_mpc_qp_lanes` does.
+    `masked`: each row keeps a random number of its F facets and pads the
+    rest as `_masked_geometry` does (zero rows, offset 1e8)."""
     n = 6 * Nt
     c = lambda a: torch.as_tensor(a, dtype=F32, device=device)
     Hq = gen.standard_normal((B, n, 24))
+    hull_A = gen.standard_normal((B, F, 6))
+    h_hull = np.abs(gen.standard_normal((B, Nt, F))) + 0.5
+    if masked:
+        live = np.arange(F)[None, :] < gen.integers(F // 2, F + 1, B)[:, None]
+        hull_A = hull_A * live[:, :, None]
+        h_hull = np.where(live[:, None, :], h_hull, 1e8)
     qp = StructuredMPCQP(
         H=c(np.einsum("bik,bjk->bij", Hq, Hq) * 0.1 + 2.0 * np.eye(n)),
         g=c(gen.standard_normal((B, n))),
-        hull_A=c(gen.standard_normal((B, F, 6))),
-        h_hull=c(np.abs(gen.standard_normal((B, Nt, F))) + 0.5),
+        hull_A=c(hull_A),
+        h_hull=c(h_hull),
         G_term=c(gen.standard_normal((B, T, n)) * 0.1),
         h_term=c(np.abs(gen.standard_normal((B, T))) + 0.5),
     )
@@ -96,16 +111,25 @@ def admm_case(gen, T, device, B=260, Nt=15, F=32):
             zeros(qp.h_hull), zeros(qp.h_term), rho]
 
 
-@pytest.mark.parametrize("T", [64, 596])
-def test_admm_kernel_matches_plain(dev, gen, T):
-    """T=64 keeps G_term in shared memory; T=596 (state box and rate rows at
-    Nt=15) reads it from device memory."""
-    args = admm_case(gen, T, dev)
+@pytest.mark.parametrize("B,Nt,F,T,y_max", [
+    (260, 15, 32, 64, 1e3),   # the main path's shape: register tiles, 8 warps
+    (256, 15, 32, 64, 0.0),   # the cleanup's batch, hinge prox off
+    (3, 15, 20, 37, 1e3),     # masked facets, a partly filled second row tile
+    (1, 15, 20, 1, 0.0),
+    (3, 1, 32, 64, 1e3),      # one stage: one warp, one live column of six
+    (1, 1, 20, 37, 0.0),
+    (260, 15, 32, 596, 1e3),  # state box and rate rows: the shared-memory design,
+    (3, 15, 20, 596, 0.0),    # G_term read from device memory
+])
+def test_admm_kernel_matches_plain(dev, gen, B, Nt, F, T, y_max):
+    """admm_f32 keeps K^-1 and G_term in registers for Nt <= 16, F <= 32,
+    T <= 64, and runs its shared-memory design beyond."""
+    args = admm_case(gen, T, dev, B=B, Nt=Nt, F=F, masked=F < 32)
     n0 = lq.admm_lanes.launches
-    out = lq.admm_lanes(*args, 1e-6, 1.6, 60, 1e3)
+    out = lq.admm_lanes(*args, 1e-6, 1.6, 60, y_max)
     torch.cuda.synchronize()
     assert lq.admm_lanes.launches == n0 + 1
-    ref = lq.admm_plain(*[a.contiguous() for a in args], 1e-6, 1.6, 60, 1e3)
+    ref = lq.admm_plain(*[a.contiguous() for a in args], 1e-6, 1.6, 60, y_max)
     assert all(torch.isfinite(r).all() for r in ref)
     np.testing.assert_allclose(np_(out[0]), np_(ref[0]), atol=5e-5)
     for o, r in zip(out[1:], ref[1:]):
