@@ -15,10 +15,11 @@
    before and read just after.
 3. Holds each kernel against its plain PyTorch version on the card, at the
    main path's shapes, and times both (CUDA events around back-to-back
-   calls, median of 3 rounds); each kernel line carries its share of the
-   bound (bound_ms / ms), and ADMM's its us per iteration.  The allocation
-   kernel is also held at its hull test's threshold and on the main path's
-   own wrenches.
+   calls, median of 3 rounds; a kernel's calls are all queued before the
+   first event); each kernel line carries its share of the bound
+   (bound_ms / ms), and ADMM's and allocation's their us per iteration.
+   The allocation kernel is also held at its hull test's threshold and on
+   the main path's own wrenches.
 4. Compares one whole step on the card with the port's CPU run on 64 rows,
    from states near the terminal sets and from the bench's states.
 5. Drives the stagewise (long-horizon) path at the largest point of
@@ -237,16 +238,26 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def time_ms(fn, reps: int, device, rounds: int = 3) -> float:
+def time_ms(fn, reps: int, device, rounds: int = 3, device_only: bool = False) -> float:
     """ms per call: the median over `rounds` of `reps` back-to-back calls
-    between two CUDA events (host clock on the CPU), after one warm-up."""
+    between two CUDA events (host clock on the CPU), after one warm-up.
+
+    `device_only`: the device first spins for twice the host's time to
+    enqueue the calls, so every call is queued before the first event and
+    the events time the kernels alone, not a host that launches slower than
+    they run (a wrapper's checks and allocations take tens of us)."""
+    t0 = time.perf_counter()
     fn()
+    host_s = time.perf_counter() - t0
     sync(device)
     times = []
     for _ in range(rounds):
         if device.type == "cuda":
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
+            if device_only:
+                # cycles at an upper bound of 2 GHz: the spin lasts at least as long
+                torch.cuda._sleep(int(2e9 * max(2 * reps * host_s, 1e-3)))
             a.record()
             for _ in range(reps):
                 fn()
@@ -381,7 +392,7 @@ def check_condense(ctx: Ctx, warm) -> dict:
         "source": "ft_mpc_torch/csrc/condense.cu",
         "replaces": "ft_mpc_tpu/solvers/lanes_condense.py:38",
         "max_abs_err": err, "tol": TOL_CONDENSE * scale,
-        "ms": time_ms(lambda: _condense_cuda(A, Bm, d), 20, ctx.device),
+        "ms": time_ms(lambda: _condense_cuda(A, Bm, d), 20, ctx.device, device_only=True),
         "plain_ms": time_ms(lambda: condense_plain(A, Bm, d), 3, ctx.device),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": f"B={B} Nt={Nt}",
@@ -446,7 +457,7 @@ def check_admm(ctx: Ctx, args, iters, label, reps=10) -> dict:
     B, Nt, F = args[2].shape
     T = args[4].shape[1]
     b_ms, b_by = bound_ms(nbytes(*args, *out), admm_flops(B, Nt, F, T, iters))
-    ms = time_ms(run, reps, ctx.device)
+    ms = time_ms(run, reps, ctx.device, device_only=True)
     return {
         "name": "admm_lanes", "route": "cuda", "source": "ft_mpc_torch/csrc/admm.cu",
         "replaces": "ft_mpc_tpu/solvers/lanes_qp.py:181",
@@ -553,12 +564,14 @@ def alloc_timing(ctx: Ctx, args, got, shape: str) -> dict:
     from ft_mpc_torch.solvers.lanes_alloc import _alloc_cuda, alloc_plain
 
     B, F = args[5].shape
-    b_ms, b_by = bound_ms(nbytes(*args, *got), alloc_flops(B, F, 60, 40))
+    fista, admm = ALLOC_HYPER[:2]
+    b_ms, b_by = bound_ms(nbytes(*args, *got), alloc_flops(B, F, fista, admm))
+    ms = time_ms(lambda: _alloc_cuda(*args, *ALLOC_HYPER), 20, ctx.device, device_only=True)
     return {
         "name": "allocate_thrusters_lanes", "route": "cuda",
         "source": "ft_mpc_torch/csrc/alloc.cu",
         "replaces": "ft_mpc_tpu/solvers/lanes_alloc.py:67",
-        "ms": time_ms(lambda: _alloc_cuda(*args, *ALLOC_HYPER), 20, ctx.device),
+        "ms": ms, "us_per_iter": 1e3 * ms / (fista + admm),
         "plain_ms": time_ms(lambda: alloc_plain(*args, *ALLOC_HYPER), 1, ctx.device),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": shape.format(B=B, F=F),
@@ -737,7 +750,7 @@ def check_riccati(ctx: Ctx, fact, q, r, qN, x0, label: str, reps: int = 20) -> l
             "rel_err_vs_f64": rel64, "plain_rel_err_vs_f64": plain64,
             "tol_rel_f64": TOL_RICCATI_F64, "pair_rel_err": pair[1],
             "path_factorization_contiguous": contiguous,
-            "ms": time_ms(lambda: kern(*ins), reps, ctx.device),
+            "ms": time_ms(lambda: kern(*ins), reps, ctx.device, device_only=True),
             "plain_ms": time_ms(lambda: plain(*ins), 1, ctx.device),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "shape": f"{label}: B={B} Nt={Nt}",

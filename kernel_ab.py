@@ -1,21 +1,29 @@
 #!/usr/bin/env python3
-"""Time two builds of the condensing and ADMM kernels on one card, in turns.
+"""Time two builds of the condensing, ADMM and allocation kernels on one card,
+in turns.
 
     python3 kernel_ab.py OLD_ROOT     # from the root of a checkout
 
 OLD_ROOT is the root of another checkout of the repo (for example a `git
-archive` of the parent commit).  Its `ft_mpc_torch/csrc/condense.cu` and
-`admm.cu` are built with the same nvcc flags into OLD_ROOT/build and loaded
-beside this checkout's own build.  Both are called through the same ctypes
-code on the same inputs, the condensed main path's (`chip_smoke.py`: B=2048,
-Nt=15, after init and 12 chained steps):
+archive` of the parent commit).  Its `ft_mpc_torch/csrc/condense.cu`,
+`admm.cu` and `alloc.cu` are built with the same nvcc flags into
+OLD_ROOT/build and loaded beside this checkout's own build.  Both are called
+through the same ctypes code on the same inputs, the condensed main path's
+(`chip_smoke.py`: B=2048, Nt=15, after init and 12 chained steps):
 - condense on the stage jacobians of the final warm start;
 - ADMM on the QP of the final warm start at T=64 (60 iterations), on the
   worst 256 rows as the cleanup runs it (600 iterations), and with the
-  state-box and rate rows (T=596, 60 iterations).
+  state-box and rate rows (T=596, 60 iterations);
+- allocation on the final step's wrenches (B=2048, F=32, 60 FISTA and 40
+  ADMM iterations), and on their first 512 rows (the stagewise path's batch).
 Each case is timed old, new, new, old (CUDA events, median of 3 rounds of
-back-to-back calls each), and both outputs are held against the plain
-version.  Prints the card's name and power limit and one JSON line per case.
+back-to-back calls each, all queued before the first event), and both
+outputs are held against the plain version: condense and ADMM within
+chip_smoke's tolerances; allocation u within TOL_ALLOC_MAIN on the rows where
+both took the same branches, with the rows whose branches differ counted (at
+most MAX_FLIP_SHARE of them), and the hull test must decide every row as
+the old kernel does.  Prints the card's name and power limit and one
+JSON line per case.
 """
 
 from __future__ import annotations
@@ -38,16 +46,19 @@ CONDENSE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_vo
 ADMM_ARGS = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 4
              + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_float,
                 ctypes.c_void_p])
+ALLOC_ARGS = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
+              + [ctypes.c_void_p])
+ARGS = {"condense": CONDENSE_ARGS, "admm": ADMM_ARGS, "alloc": ALLOC_ARGS}
 
 
 def build_old(root: Path) -> dict:
-    """{name: (condense_f32 or admm_f32 of OLD_ROOT)}, built in parallel."""
+    """{name: <name>_f32 of OLD_ROOT} for each kernel of ARGS, built in parallel."""
     from ft_mpc_torch import kernels
 
     out_dir = root / "build"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in ("condense", "admm"):
+    for name in ARGS:
         so = out_dir / f"{name}-ab.so"
         cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(so),
                str(root / "ft_mpc_torch" / "csrc" / f"{name}.cu")]
@@ -61,7 +72,7 @@ def build_old(root: Path) -> dict:
         usage = [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
         print(f"ptxas old {name}: " + " | ".join(usage), flush=True)
         fn = getattr(ctypes.CDLL(str(so)), f"{name}_f32")
-        fn.argtypes = CONDENSE_ARGS if name == "condense" else ADMM_ARGS
+        fn.argtypes = ARGS[name]
         fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
@@ -93,9 +104,48 @@ def call_admm(fn, args, sigma, alpha, iters, y_max):
     return outs
 
 
+def call_alloc(fn, args, iters=cs.ALLOC_HYPER[:2]):
+    from ft_mpc_torch import kernels
+
+    B, F = args[5].shape
+    u = torch.empty((B, 16), dtype=torch.float32, device=args[1].device)
+    w_des = torch.empty((B, 6), dtype=torch.float32, device=args[1].device)
+    flags = torch.empty((B, 3), dtype=torch.float32, device=args[1].device)
+    fista, admm = iters
+    hyper = cs.ALLOC_HYPER[2:]
+    err = fn(*(t.data_ptr() for t in args), u.data_ptr(), w_des.data_ptr(), flags.data_ptr(),
+             B, F, fista, admm, *(float(h) for h in hyper), kernels.stream_of(args[1]))
+    if err:
+        raise RuntimeError(f"alloc_f32: CUDA error {err}")
+    return u, w_des, flags
+
+
+def alloc_vs(got, ref) -> dict:
+    """Rows whose branches differ (of them, rows whose hull test differs) and
+    max |du| on the rows with equal branches, as chip_smoke.check_alloc_main
+    counts them."""
+    bg, br = got[2][:, :2] > 0.5, ref[2][:, :2] > 0.5
+    same = (bg == br).all(dim=1)
+    du = (got[0].double() - ref[0].double()).abs().max(dim=1).values
+    return {"branch_rows": int((~same).sum()), "hull_rows": int((bg[:, 0] != br[:, 0]).sum()),
+            "u_err": float(du[same].max()) if bool(same.any()) else 0.0}
+
+
+def alloc_phases(fn, args, device) -> dict:
+    """The allocation kernel's time split by timing it with the FISTA and
+    ADMM loops cut to 0 iterations: the rest (loads, hull test, the two 6x6
+    inversions, polish) in ms, and us per FISTA and per ADMM iteration."""
+    fista, admm = cs.ALLOC_HYPER[:2]
+    t = {it: cs.time_ms(lambda: call_alloc(fn, args, it), 20, device, device_only=True)
+         for it in ((0, 0), (fista, 0), (0, admm))}
+    return {"rest_ms": t[(0, 0)],
+            "fista_us_per_iter": 1e3 * (t[(fista, 0)] - t[(0, 0)]) / fista,
+            "admm_us_per_iter": 1e3 * (t[(0, admm)] - t[(0, 0)]) / admm}
+
+
 def in_turns(old, new, reps, device) -> dict:
     """ms of each side, timed old, new, new, old."""
-    t = [cs.time_ms(f, reps, device) for f in (old, new, new, old)]
+    t = [cs.time_ms(f, reps, device, device_only=True) for f in (old, new, new, old)]
     o, nw = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
     return {"old_ms": o, "new_ms": nw, "speedup": o / nw, "turns_ms": t}
 
@@ -111,6 +161,7 @@ def main(argv=None) -> int:
         return 2
     import ft_mpc_torch
     from ft_mpc_torch import kernels
+    from ft_mpc_torch.solvers.lanes_alloc import alloc_plain
     from ft_mpc_torch.solvers.lanes_condense import condense_plain
     from ft_mpc_torch.solvers.lanes_qp import admm_plain
 
@@ -119,8 +170,8 @@ def main(argv=None) -> int:
     print(f"card: {cs.card_line()}", flush=True)
     cs.build_kernels()
     old = build_old(old_root)
-    new = {"condense": kernels.function("condense", "condense_f32", CONDENSE_ARGS),
-           "admm": kernels.function("admm", "admm_f32", ADMM_ARGS)}
+    new = {name: kernels.function(name, f"{name}_f32", argtypes)
+           for name, argtypes in ARGS.items()}
 
     ctx = cs.Ctx(device, torch.float32, cs.BATCH)
     _, warm, out = cs.drive_main_path(ctx, 10, 2)
@@ -170,6 +221,27 @@ def main(argv=None) -> int:
         res["old_us_per_iter"] = 1e3 * res["old_ms"] / iters
         res["new_us_per_iter"] = 1e3 * res["new_ms"] / iters
         results.append(res)
+
+    full = cs.alloc_args(ctx, out.wrench)
+    iters = sum(cs.ALLOC_HYPER[:2])
+    for label, rows in (("condensed path", len(full[1])), ("first rows, stagewise batch", cs.SW_BATCH)):
+        args = [full[0]] + [t[:rows].contiguous() for t in full[1:]]
+        ref = alloc_plain(*args, *cs.ALLOC_HYPER)
+        got = {side: call_alloc(fn, args) for side, fn in
+               (("old", old["alloc"]), ("new", new["alloc"]))}
+        B, F = args[5].shape
+        b_ms, b_by = cs.bound_ms(cs.nbytes(*args, *ref), cs.alloc_flops(B, F, *cs.ALLOC_HYPER[:2]))
+        res = {"kernel": "alloc", "shape": f"{label}'s own wrenches: B={B} F={F} iters={iters}",
+               "rows": B, "bound_ms": b_ms, "bound_by": b_by,
+               **{f"{side}_vs_plain": alloc_vs(g, ref) for side, g in got.items()},
+               "new_vs_old": alloc_vs(got["new"], got["old"]),
+               **in_turns(lambda: call_alloc(old["alloc"], args),
+                          lambda: call_alloc(new["alloc"], args), 20, device)}
+        res["old_us_per_iter"] = 1e3 * res["old_ms"] / iters
+        res["new_us_per_iter"] = 1e3 * res["new_ms"] / iters
+        for side, fns in (("old", old), ("new", new)):
+            res[f"{side}_phases"] = alloc_phases(fns["alloc"], args, device)
+        results.append(res)
     cs.sync(device)
 
     ok = True
@@ -179,8 +251,13 @@ def main(argv=None) -> int:
         print("ab: " + json.dumps(r), flush=True)
         if r["kernel"] == "condense":
             ok &= r["new_max_abs_err"] <= r["tol"]
-        else:
+        elif r["kernel"] == "admm":
             ok &= r["new_max_rel_err"] <= cs.TOL_ADMM
+        else:
+            # the hull test keeps its rounding: the same decision as the old kernel on every row
+            v = r["new_vs_plain"]
+            ok &= (v["u_err"] <= cs.TOL_ALLOC_MAIN and v["branch_rows"] <= cs.MAX_FLIP_SHARE * r["rows"]
+                   and r["new_vs_old"]["hull_rows"] == 0)
     print(f"card: {cs.card_line()}", flush=True)
     return 0 if ok else 1
 

@@ -141,24 +141,58 @@ def _bank(rows, device):
     return take_rows(bank, torch.arange(rows, device=device))
 
 
-def test_alloc_kernel_matches_plain(dev, gen):
-    """Demands of +-0.5 clip about a quarter of the rows and send a few to
-    the fallback.  (Far larger demands put rows on the eq_err = 1e-2
-    fallback threshold, where float32 summation order decides the branch.)"""
-    B = 2048
-    bank = _bank(B, dev)
-    params = BodyParams.default(0.1, device=dev)
-    wr = torch.as_tensor(gen.uniform(-0.5, 0.5, (B, 6)), dtype=F32, device=dev)
-    call = lambda b, p, w: la.allocate_thrusters_lanes(
-        w, p.D, b.u_ub, b.faulty_force_gen, b.hull_A, b.hull_b, b.hull_mask,
-        b.gen_G, b.gen_c, b.gen_L, p.max_thrust,
-    )
+def alloc_hull(gen, bank, masked):
+    """The bank's hull (A, b, mask) as numpy; `masked`: each row keeps a
+    random number (0 to all) of its live facets, and F is padded from 32 to
+    40 with masked facets, so the hull test stages two chunks of facets."""
+    A, b, m = (t.cpu().numpy() for t in (bank.hull_A, bank.hull_b, bank.hull_mask))
+    if masked:
+        B = m.shape[0]
+        keep = gen.integers(0, m.sum(axis=1) + 1)
+        m = m * (np.cumsum(m, axis=1) <= keep[:, None])
+        A = np.concatenate([A, np.zeros((B, 8, 6), A.dtype)], axis=1)
+        b = np.concatenate([b, np.ones((B, 8), b.dtype)], axis=1)
+        m = np.concatenate([m, np.zeros((B, 8), m.dtype)], axis=1)
+    return A, b, m
+
+
+@pytest.mark.parametrize("iters", [(60, 40), (1, 1)], ids=["60x40", "1x1"])
+@pytest.mark.parametrize("facets", ["snapshot", "masked"])
+@pytest.mark.parametrize("B", [1, 3, 17, 512, 2048])
+def test_alloc_kernel_matches_plain(dev, gen, B, facets, iters):
+    """A group of 16 lanes per scenario, two scenarios a warp: odd B leaves
+    an idle group in the last warp, which runs a copy of the last scenario
+    and stores nothing.  Rows (31 + 7 i) mod 32 of the snapshot
+    start with a double fault, then singles, and from B=17 on hold every
+    pattern (one or two dead thrusters, u_ub = 0).  Demands of +-0.5 clip
+    about a quarter of the rows and send a few to the fallback.  (Far larger
+    demands put rows on the eq_err = 1e-2 fallback threshold, where float32
+    summation order decides the branch.)"""
+    rows = torch.as_tensor((31 + 7 * np.arange(B)) % 32)
+    bank = take_rows(load_bank_snapshot(device="cpu", dtype=F32), rows)
+    dead = (bank.u_ub == 0).sum(dim=1)
+    assert int(dead[0]) == 2 and (B < 3 or int(dead[1]) == 1)
+    wr = gen.uniform(-0.5, 0.5, (B, 6))
+    hull = alloc_hull(gen, bank, facets == "masked")
+    fista, admm = iters
+
+    def call(device):
+        params = BodyParams.default(0.1, device=device)
+        b = take_rows(load_bank_snapshot(device=device, dtype=F32), rows.to(device))
+        hA, hb, hm = (torch.as_tensor(a, dtype=F32, device=device) for a in hull)
+        return la.allocate_thrusters_lanes(
+            torch.as_tensor(wr, dtype=F32, device=device), params.D, b.u_ub,
+            b.faulty_force_gen, hA, hb, hm, b.gen_G, b.gen_c, b.gen_L, params.max_thrust,
+            fista_iters=fista, admm_iters=admm,
+        )
+
     n0 = la.allocate_thrusters_lanes.launches
-    out = call(bank, params, wr)
+    out = call(dev)
     torch.cuda.synchronize()
     assert la.allocate_thrusters_lanes.launches == n0 + 1
-    ref = call(_bank(B, "cpu"), BodyParams.default(0.1, device="cpu"), wr.cpu())
-    assert 0 < int(ref.was_clipped.sum()) < B
+    ref = call("cpu")
+    if B >= 17:
+        assert 0 < int(ref.was_clipped.sum()) < B
     np.testing.assert_array_equal(np_(out.was_clipped), np_(ref.was_clipped))
     np.testing.assert_array_equal(np_(out.used_fallback), np_(ref.used_fallback))
     np.testing.assert_allclose(np_(out.u_phys), np_(ref.u_phys), atol=2e-3)
