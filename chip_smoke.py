@@ -32,6 +32,20 @@
    kernel on that path's own wrenches (B=512, held and timed), and
    compares two chained stagewise steps on the card with the CPU run at
    B=32, horizon 60.  The path's max_r_prim and max_term_gap are gated.
+6. Drives the closed loop (`ft_mpc_torch/sim/env.py`), each run with the
+   launch counters zeroed just before and read just after:
+   - `batched_rollout_lanes` at the condensed path's configuration, B=2048,
+     LOOP_STEPS = 50 steps, seeded 'reference' noise: per-step times, the
+     kernels' launches per step (3 / 5 / 1), the plant and fault gates, and
+     the allocation kernel held on the last step's wrenches;
+   - 3 closed-loop steps at B=32 (one row per pattern, no noise), each step
+     also taken by the port's CPU run from the card's state and warm start;
+   - the per-scenario path, which launches no kernel: the demo
+     (`examples/sim.py`: the (10, 11) double fault, 300 steps of hover,
+     'reference' noise; its final orbit-centre error gated below 0.1 m),
+     `batched_rollout` at B=128 for 20 steps, `rollout_with_fault_schedule`
+     (healthy, then (10, 11) from step 15 of 40), and the stagewise backend
+     (mode 'scan', horizon 60) for 5 steps.
 
 Prints the card's name and power limit, one JSON line with every kernel's
 numbers, and as its last line {"ok": true, "device": {...}}.  Exits with a
@@ -48,6 +62,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -117,6 +132,18 @@ SW_SMALL_STEPS = 2  # chained, so the carried warm start, duals and rho are held
 # stops converging (a wrong rho rule, duals dropped between steps) reads far
 # above; benchmarks/long_horizon.py reports the same number and gates nothing.
 SW_R_PRIM_GATE = 1e-2
+# The closed loop (ft_mpc_torch/sim/env.py)
+LOOP_STEPS = 50  # batched_rollout_lanes at B=BATCH
+LOOP_SMALL = (32, 3)  # (B, steps) of the same-state card-vs-CPU closed loop
+# launches per step on the condensed path: condensing once per SQP iteration
+# and once in the cleanup; ADMM once per SQP iteration and once per cleanup
+# phase; allocation once.  init_warmstart_batch condenses once more.
+LOOP_LAUNCHES = {"condense_lanes": 3, "admm_lanes": 5, "allocate_thrusters_lanes": 1}
+DEMO_STEPS = 300  # examples/sim.py: 30 s of hover at dt 0.1
+DEMO_ERR_GATE = 0.1  # m, final orbit-centre position error of the demo
+SCEN_BATCH = (128, 20)  # (B, steps) of batched_rollout (examples/sim.py --batch 128)
+SCHEDULE = (15, 40)  # (switch step, steps), tests/test_mpc.py:188-212
+SW_ROLLOUT = (60, 5)  # (horizon, steps) of the per-scenario stagewise rollout
 CONDENSED_KERNELS = ("condense_lanes", "admm_lanes", "allocate_thrusters_lanes")
 STAGEWISE_KERNELS = ("riccati_bwd_lanes", "riccati_fwd_lanes",
                      "allocate_thrusters_lanes")
@@ -186,6 +213,7 @@ class Ctx:
         )
         t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
         self.x_ref, self.u_ref = t(x_ref[: Nt + 1]), t(u_ref[: Nt + 1])
+        self.x_ref_full, self.u_ref_full = t(x_ref), t(u_ref)  # for closed loops
         self.x0 = t(default_x0(B) if x0 is None else x0)
 
     def init(self):
@@ -798,17 +826,298 @@ def card_vs_cpu(device, x0: np.ndarray, stagewise_horizon: int = 0,
     return res
 
 
+# ---------------------------------------------------------------------------
+# the closed loop (ft_mpc_torch/sim/env.py)
+# ---------------------------------------------------------------------------
+
+
+class StepRecorder:
+    """Wraps the controller entry point a rollout calls (`env.<name>`) for
+    the length of a `with` block: a timestamp after a device sync at every
+    step's start (so per-step times cover the whole step: controller, plant,
+    noise, warm-start shift), and with `keep` each step's inputs and output.
+    The rollout itself is not changed."""
+
+    def __init__(self, name: str, device, keep: bool = False):
+        self.name, self.device, self.keep = name, device, keep
+        self.stamps, self.calls = [], []
+
+    def __enter__(self):
+        from ft_mpc_torch.sim import env
+
+        self.env, self.real = env, getattr(env, self.name)
+
+        def wrapped(*args):
+            sync(self.device)
+            self.stamps.append(time.perf_counter())
+            out = self.real(*args)
+            if self.keep:
+                self.calls.append((args, out))
+            return out
+
+        setattr(env, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.env, self.name, self.real)
+        sync(self.device)
+        self.stamps.append(time.perf_counter())
+
+    def step_ms(self) -> np.ndarray:
+        return 1e3 * np.diff(np.asarray(self.stamps))
+
+
+def zero_counters() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counters() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def history_stats(hist, rec: StepRecorder, u_ub) -> dict:
+    """A rollout's per-step times and health, from its (B, T, ...) history;
+    u_ub (B, 16), or (B, T, 16) where the scenario changes with the step."""
+    ms = rec.step_ms()
+    B, T = hist.u_phys.shape[:2]
+    u = hist.u_phys.double()
+    ub = (u_ub[:, None, :] if u_ub.dim() == 2 else u_ub).double().expand_as(u)
+    broken = ub <= 0
+    finite = all(bool(torch.isfinite(getattr(hist, f).double()).all())
+                 for f in ("state", "c0", "u_phys", "wrench", "cost", "r_prim"))
+    return {
+        "B": B, "steps": T,
+        "p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99)),
+        "wall_s": float(ms.sum() / 1e3),
+        "solves_per_s": B * 1e3 / float(np.percentile(ms, 50)),
+        "finite": finite,
+        "u_below_0": float(torch.clamp(-u, min=0).max()),
+        "u_above_ub": float(torch.clamp(u - ub, min=0).max()),
+        "max_broken_u": float(u[broken].abs().max()) if bool(broken.any()) else 0.0,
+        "max_r_prim_per_step": [float(v) for v in hist.r_prim.double().amax(dim=0)],
+        "max_term_gap_per_step": [float(v) for v in hist.term_gap.double().amax(dim=0)],
+    }
+
+
+def loop_lanes(ctx: Ctx, steps: int, noise: bool = True, keep: bool = False):
+    """`batched_rollout_lanes` on ctx's bank, states and configuration, with
+    the launch counters zeroed just before and read just after."""
+    from ft_mpc_torch.sim import env
+
+    gen = torch.Generator(device=ctx.device).manual_seed(0) if noise else None
+    sim = env.SimConfig(steps=steps, noise_mode="reference" if noise else "none")
+    zero_counters()
+    with StepRecorder("get_control_batch", ctx.device, keep=keep) as rec:
+        hist = env.batched_rollout_lanes(ctx.params, ctx.bank, ctx.weights, ctx.cfg, sim,
+                                         ctx.x0, ctx.x_ref_full, ctx.u_ref_full, gen)
+    launches = read_counters()
+    res = history_stats(hist, rec, ctx.bank.u_ub)
+    res["launches"] = launches
+    res["launches_per_step"] = {k: v / steps for k, v in launches.items()}
+    return res, hist, rec
+
+
+def flip_on_threshold(ctx_g: Ctx, out_g, out_c) -> torch.Tensor:
+    """Per row of a card step and the CPU step from the same state: whether a
+    branch choice that differs sits on a threshold.  A hull-test flip is on
+    it when the exact (float64) test of the two sides' wrenches disagrees,
+    or either lies within float32 rounding of the margin; a fallback flip
+    when the side that kept its u has an equality error above half the
+    fallback threshold (as in check_alloc_main)."""
+    from ft_mpc_torch.solvers.lanes_alloc import _BIG
+
+    b = ctx_g.bank
+    hA = (b.hull_A * b.hull_mask[:, :, None]).float().cpu()
+    hb = torch.where(b.hull_mask > 0.5, b.hull_b, _BIG).float().cpu()
+    ff = b.faulty_force_gen.float().cpu()
+    s_g, band_g = hull_slack(hA, hb, out_g.wrench.float().cpu(), ff)
+    s_c, band_c = hull_slack(hA, hb, out_c.wrench.float().cpu(), ff)
+    out_g_side = (s_g > 0).any(dim=1)
+    out_c_side = (s_c > 0).any(dim=1)
+    near = ((s_g.abs() <= band_g).any(dim=1)) | ((s_c.abs() <= band_c).any(dim=1))
+    hull_ok = (out_g_side != out_c_side) | near
+    clip_g, fb_g = out_g.alloc.was_clipped.cpu(), out_g.alloc.used_fallback.cpu()
+    clip_c, fb_c = out_c.alloc.was_clipped.cpu(), out_c.alloc.used_fallback.cpu()
+    kept_eq = torch.where(fb_g, out_c.alloc.r_prim.cpu(), out_g.alloc.r_prim.cpu()).double()
+    fb_ok = kept_eq > FALLBACK_EQ_ERR / 2
+    hull_flip = clip_g != clip_c
+    fb_flip = ~hull_flip & (fb_g != fb_c)
+    return torch.where(hull_flip, hull_ok, torch.where(fb_flip, fb_ok, True))
+
+
+def loop_card_vs_cpu(device, B: int, steps: int) -> dict:
+    """`steps` closed-loop steps on the card (bank32 rows, bench states, no
+    noise); the CPU port takes each step's controller call from the card's
+    state and warm start.  u_phys on same-branch rows and the wrench on every
+    row within TOL_STEP_U; every branch flip must sit on a threshold."""
+    ctx = Ctx(device, torch.float32, B)
+    _, hist, rec = loop_lanes(ctx, steps, noise=False, keep=True)
+    cpu = Ctx(torch.device("cpu"), torch.float32, B)
+    host = lambda t: None if t is None else t.cpu()
+    res = {"rows": B, "steps": steps, "wrench_err": [], "u_err": [], "branch_rows": [],
+           "flips_off_threshold": 0, "finite": bool(torch.isfinite(hist.u_phys).all())}
+    for (args, out_g) in rec.calls:
+        x0, x_ref, u_ref, warm = args[4:]
+        warm_c = type(warm)(*(host(t) for t in warm))
+        out_c = cpu.sp.get_control_batch(cpu.params, cpu.bank, cpu.weights, cpu.cfg,
+                                         x0.cpu(), x_ref.cpu(), u_ref.cpu(), warm_c)
+        same = ((out_g.alloc.was_clipped.cpu() == out_c.alloc.was_clipped)
+                & (out_g.alloc.used_fallback.cpu() == out_c.alloc.used_fallback))
+        du = (out_g.u_phys.cpu() - out_c.u_phys).abs().amax(dim=1)
+        res["wrench_err"].append(float((out_g.wrench.cpu() - out_c.wrench).abs().max()))
+        res["u_err"].append(float(du[same].max()) if bool(same.any()) else 0.0)
+        res["branch_rows"].append(int((~same).sum()))
+        res["flips_off_threshold"] += int((~flip_on_threshold(ctx, out_g, out_c)).sum())
+    return res
+
+
+def demo_setup(device, terminal_mode: str = "empc", horizon: int = 15):
+    """The demo's plant, scenario, weights and references (examples/sim.py:
+    the (10, 11) double fault, hover for 30 s, float32)."""
+    from ft_mpc_torch.controllers import spiraling as sp
+    from ft_mpc_torch.geometry.scenario import load_demo_scenario
+    from ft_mpc_torch.ops.dynamics import BodyParams
+    from ft_mpc_torch.utils.trajectory import generate_trajectory, prepare_center_trajectory
+
+    f32 = torch.float32
+    sc = load_demo_scenario(terminal_mode, device=device, dtype=f32)
+    params = BodyParams.default(0.1, dtype=f32, device=device)
+    weights = sp.MPCWeights.from_diagonals(Q_DIAG, R_DIAG, dtype=f32, device=device)
+    traj = generate_trajectory("hover", 0.1, 30)
+    x_ref, u_ref = prepare_center_trajectory(traj, sc.omega_des.double().cpu().numpy(),
+                                             16.8, 0.1, horizon + 1)
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=f32, device=device)
+    return sp, sc, params, weights, t(x_ref), t(u_ref)
+
+
+def demo_x0() -> np.ndarray:
+    """examples/sim.py:82-86."""
+    from scipy.spatial.transform import Rotation
+
+    x0 = np.zeros(13)
+    x0[0:3] = [1, 0, 1]
+    x0[3:6] = [1, 0.5, 0]
+    x0[6:10] = Rotation.from_euler("zyx", [50, 30, -10], degrees=True).as_quat()
+    x0[10:13] = [0.3, 0.8, -0.1]
+    return x0
+
+
+def demo_rollout(device, steps: int = DEMO_STEPS) -> dict:
+    """`rollout` as examples/sim.py runs it: one scenario, MPCConfig's
+    defaults at horizon 15, 'reference' noise from a seeded generator."""
+    from ft_mpc_torch.sim import env
+
+    sp, sc, params, weights, x_ref, u_ref = demo_setup(device)
+    cfg = sp.MPCConfig(horizon=15)
+    gen = torch.Generator(device=device).manual_seed(0)
+    x0 = torch.as_tensor(demo_x0(), dtype=torch.float32, device=device)
+    zero_counters()
+    with StepRecorder("get_control_rows", device) as rec:
+        hist = env.rollout(params, sc, weights, cfg, env.SimConfig(steps=steps), x0, x_ref,
+                           u_ref, gen)
+    res = history_stats(type(hist)(*(t[None] for t in hist)), rec, sc.u_ub[None])
+    res["launches"] = read_counters()
+    res["final_orbit_center_error_m"] = float(
+        torch.linalg.vector_norm(hist.c0[-1, 0:3] - hist.x_ref0[-1, 0:3]))
+    return res
+
+
+def scenario_batch_rollout(device, B: int, steps: int) -> dict:
+    """`batched_rollout` (the per-scenario controller on every row): the
+    snapshot tiled to B rows, every row from the demo's state."""
+    from ft_mpc_torch.sim import env
+
+    ctx = Ctx(device, torch.float32, B, x0=np.tile(demo_x0(), (B, 1)))
+    sp = ctx.sp
+    cfg = sp.MPCConfig(horizon=15)
+    _, sc, params, weights, x_ref, u_ref = demo_setup(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    zero_counters()
+    with StepRecorder("get_control_rows", device) as rec:
+        hist = env.batched_rollout(params, ctx.bank, weights, cfg, env.SimConfig(steps=steps),
+                                   ctx.x0, x_ref, u_ref, gen)
+    res = history_stats(hist, rec, ctx.bank.u_ub)
+    res["launches"] = read_counters()
+    return res
+
+
+def schedule_rollout(device, switch: int, steps: int) -> dict:
+    """`rollout_with_fault_schedule`: healthy, then the (10, 11) double fault
+    from step `switch` (tests/test_mpc.py:188-212, no noise)."""
+    from torch.utils._pytree import tree_map
+
+    from ft_mpc_torch.geometry.scenario import load_bank_snapshot, take_rows
+    from ft_mpc_torch.sim import env
+
+    sp, faulted, params, weights, x_ref, u_ref = demo_setup(device)
+    healthy = take_rows(load_bank_snapshot(device=device), 0)
+    sched = tree_map(lambda a, b: torch.stack([a, b]), healthy, faulted)
+    x0 = np.zeros(13)
+    x0[0:3] = [0.3, 0.1, -0.2]
+    x0[9] = 1.0
+    zero_counters()
+    with StepRecorder("get_control_rows", device) as rec:
+        hist = env.rollout_with_fault_schedule(
+            params, sched, torch.tensor([0, switch], device=device), weights,
+            sp.MPCConfig(horizon=15), env.SimConfig(steps=steps, noise_mode="none"),
+            torch.as_tensor(x0, dtype=torch.float32, device=device), x_ref, u_ref)
+    u = hist.u_phys.double()
+    u_ub = torch.where(torch.arange(steps, device=device)[:, None] < switch,
+                       healthy.u_ub, faulted.u_ub)  # (T, 16): the active scenario's
+    res = history_stats(type(hist)(*(t[None] for t in hist)), rec, u_ub[None])
+    res["launches"] = read_counters()
+    res["max_u_10_11_before"] = float(u[:switch, 10:12].max())
+    res["max_u_10_11_after"] = float(u[switch:, 10:12].abs().max())
+    return res
+
+
+def stagewise_rollout(device, horizon: int, steps: int) -> dict:
+    """`rollout` on the stagewise backend (mode 'scan', the configuration of
+    benchmarks/long_horizon.py), the demo's scenario from rest near the
+    orbit, no noise."""
+    from ft_mpc_torch.sim import env
+    from ft_mpc_torch.solvers.mpc_qp_stagewise import StagewiseConfig
+
+    sp, sc, params, weights, x_ref, u_ref = demo_setup(device, horizon=horizon)
+    cfg = sp.MPCConfig(horizon=horizon, sqp_iters=2, qp_backend="stagewise",
+                       stagewise=StagewiseConfig(iters=60, phases=1, rho=50.0,
+                                                 adapt_clip=1.5, mode="scan"))
+    x0 = np.zeros(13)
+    x0[0:3] = [0.3, 0.1, -0.2]
+    x0[9] = 1.0
+    zero_counters()
+    with StepRecorder("get_control_rows", device) as rec:
+        hist = env.rollout(params, sc, weights, cfg, env.SimConfig(steps=steps, noise_mode="none"),
+                           torch.as_tensor(x0, dtype=torch.float32, device=device), x_ref, u_ref)
+    res = history_stats(type(hist)(*(t[None] for t in hist)), rec, sc.u_ub[None])
+    res["launches"] = read_counters()
+    res["max_term_gap"] = max(res["max_term_gap_per_step"])
+    return res
+
+
 def profile_steps(ctx: Ctx, warm, label: str, n: int = 2) -> str:
-    """torch.profiler over `n` steps: device time by kernel and host time by
-    the port's ranges; the summary is printed, and returned with the full table."""
+    """`profile_run` over `n` chained steps of ctx's path."""
+
+    def run():
+        w = warm
+        for _ in range(n):
+            w = ctx.step(w).warm
+
+    return profile_run(run, ctx.device, label, n)
+
+
+def profile_run(run, device, label: str, n: int) -> str:
+    """torch.profiler around `run()`, which takes `n` steps: device time by
+    kernel and host time by the port's ranges; the summary is printed, and
+    returned with the full table."""
     from torch.profiler import ProfilerActivity, profile
 
-    sync(ctx.device)
+    sync(device)
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            warm = ctx.step(warm).warm
-        sync(ctx.device)
+        run()
+        sync(device)
     wall_ms = 1e3 * (time.perf_counter() - t0) / n
     ev = prof.key_averages()
     cuda = torch.autograd.DeviceType.CUDA
@@ -833,11 +1142,100 @@ def profile_steps(ctx: Ctx, warm, label: str, n: int = 2) -> str:
     return "\n".join(lines) + "\n\n" + table + "\n"
 
 
+def drive_closed_loop(device, card: str, check, profiles: list | None = None) -> None:
+    """The closed-loop phases (section 6 of the module docstring); with
+    `profiles`, also traces three steps of the demo's rollout into it."""
+    ctx = Ctx(device, torch.float32, BATCH)
+    res, hist, _ = loop_lanes(ctx, LOOP_STEPS)
+    log("closed loop, batched_rollout_lanes: " + json.dumps(res))
+    log(f"closed loop, batched_rollout_lanes (B={BATCH}, Nt={HORIZON}, {LOOP_STEPS} steps, "
+        f"'reference' noise): p50 {res['p50_ms']:.3f} ms, p99 {res['p99_ms']:.3f} ms per step, "
+        f"{res['solves_per_s']:.1f} solves/s, max r_prim {max(res['max_r_prim_per_step']):.3e}, "
+        f"max term_gap {max(res['max_term_gap_per_step']):.3e}, launches per step "
+        f"{res['launches_per_step']}; card: {card}")
+    check(res["finite"], "closed loop (lanes): history not finite")
+    check(res["u_below_0"] <= 1e-6 and res["u_above_ub"] <= 1e-6,
+          f"closed loop (lanes): u_phys outside [0, u_ub] by {res['u_below_0']}, "
+          f"{res['u_above_ub']}")
+    check(res["max_broken_u"] <= 1e-6,
+          f"closed loop (lanes): a broken thruster commanded {res['max_broken_u']}")
+    want = {k: n * LOOP_STEPS + (k == "condense_lanes") for k, n in LOOP_LAUNCHES.items()}
+    got = {k: res["launches"][k] for k in want}
+    check(got == want, f"closed loop (lanes): launches {got}, expected {want} "
+          "(3 / 5 / 1 a step and the warm start's condensing)")
+    check(res["launches"]["riccati_bwd_lanes"] == 0 and res["launches"]["riccati_fwd_lanes"] == 0,
+          "closed loop (lanes): a stagewise kernel launched")
+    last = SimpleNamespace(wrench=hist.wrench[:, -1])
+    am = check_alloc_main(ctx, last)
+    log("alloc on the closed loop's last wrenches (control: plain float32 vs plain "
+        "float64): " + json.dumps(am))
+    check(am["u_err"] <= TOL_ALLOC_MAIN and am["branch_rows"] <= MAX_FLIP_SHARE * am["rows"]
+          and am["hull_flips_off_threshold"] == 0
+          and all(e > FALLBACK_EQ_ERR / 2 for e in am["fallback_flips_kept_eq_err"]),
+          f"allocation kernel disagrees with its plain version on the closed loop: {am}")
+    del ctx, hist, last
+    torch.cuda.empty_cache()
+
+    B_s, steps_s = LOOP_SMALL
+    same = loop_card_vs_cpu(device, B_s, steps_s)
+    log(f"closed loop, same state card vs CPU port ({B_s} rows, {steps_s} steps, float32): "
+        + json.dumps(same))
+    # the branch rows are counted; a flip is allowed only on a threshold
+    check(same["finite"] and max(same["wrench_err"]) <= TOL_STEP_U
+          and max(same["u_err"]) <= TOL_STEP_U and same["flips_off_threshold"] == 0,
+          f"closed loop: the card's step differs from the CPU port's: {same}")
+
+    none = lambda r: all(v == 0 for v in r["launches"].values())
+    demo = demo_rollout(device, DEMO_STEPS)
+    log("demo rollout: " + json.dumps(demo))
+    log(f"demo rollout (examples/sim.py: (10, 11), empc, Nt=15, {DEMO_STEPS} steps, "
+        f"'reference' noise): p50 {demo['p50_ms']:.3f} ms per step, wall {demo['wall_s']:.2f} s, "
+        f"{DEMO_STEPS / demo['wall_s']:.1f} solves/s, final orbit-center position error "
+        f"{demo['final_orbit_center_error_m']:.4f} m (gate {DEMO_ERR_GATE}); card: {card}")
+    check(demo["finite"] and demo["final_orbit_center_error_m"] < DEMO_ERR_GATE,
+          f"demo: final orbit-center error {demo['final_orbit_center_error_m']}")
+    check(demo["max_broken_u"] <= 1e-6 and demo["u_above_ub"] <= 1e-6
+          and demo["u_below_0"] <= 1e-6, f"demo: thruster bounds violated: {demo}")
+    check(none(demo), f"demo: the per-scenario path launched a kernel: {demo['launches']}")
+    if profiles is not None:
+        profiles.append(profile_run(lambda: demo_rollout(device, 3), device,
+                                    "demo rollout, per-scenario path", 3))
+
+    B_b, steps_b = SCEN_BATCH
+    batch = scenario_batch_rollout(device, B_b, steps_b)
+    log("batched_rollout: " + json.dumps(batch))
+    log(f"batched_rollout (B={B_b}, {steps_b} steps): p50 {batch['p50_ms']:.3f} ms per step, "
+        f"{batch['solves_per_s']:.1f} solves/s; card: {card}")
+    check(batch["finite"] and batch["max_broken_u"] <= 1e-6,
+          f"batched_rollout: not finite, or a broken thruster commanded: {batch}")
+    check(none(batch), f"batched_rollout launched a kernel: {batch['launches']}")
+
+    switch, steps_f = SCHEDULE
+    sched = schedule_rollout(device, switch, steps_f)
+    log("rollout_with_fault_schedule: " + json.dumps(sched))
+    check(sched["finite"] and sched["max_u_10_11_before"] > 1e-4
+          and sched["max_u_10_11_after"] <= 1e-6 and sched["max_broken_u"] <= 1e-6
+          and sched["u_above_ub"] <= 1e-6 and sched["u_below_0"] <= 1e-6,
+          f"rollout_with_fault_schedule: thrusters 10/11 {sched['max_u_10_11_before']} before, "
+          f"{sched['max_u_10_11_after']} after step {switch}")
+    check(none(sched), f"rollout_with_fault_schedule launched a kernel: {sched['launches']}")
+
+    Nt_s, steps_w = SW_ROLLOUT
+    swr = stagewise_rollout(device, Nt_s, steps_w)
+    log("stagewise rollout: " + json.dumps(swr))
+    log(f"stagewise rollout (mode 'scan', Nt={Nt_s}, {steps_w} steps): p50 {swr['p50_ms']:.3f} ms "
+        f"per step, max_term_gap {swr['max_term_gap']:.3e}; card: {card}")
+    check(swr["finite"] and swr["max_term_gap"] <= GAP_GATE,
+          f"stagewise rollout: finite {swr['finite']}, max_term_gap {swr['max_term_gap']}")
+    check(none(swr), f"stagewise rollout launched a kernel: {swr['launches']}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=Path, metavar="FILE",
-                    help="trace two condensed steps and one stagewise step with "
-                         "torch.profiler; write the tables to FILE")
+                    help="trace two condensed steps, one stagewise step and three "
+                         "steps of the demo's rollout with torch.profiler; write the "
+                         "tables to FILE")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -980,8 +1378,6 @@ def main(argv=None) -> int:
     log("kernel: " + json.dumps(with_share(time_alloc_main(sw, sw_out, "stagewise path"))))
     if args.profile:
         profiles.append(profile_steps(sw, sw_warm, f"stagewise B={SW_BATCH} Nt={SW_HORIZON}", n=1))
-        args.profile.parent.mkdir(parents=True, exist_ok=True)
-        args.profile.write_text("\n".join(profiles))
 
     captured = capture_riccati(sw, sw_warm)
     check(sorted(captured) == sorted({SW_BATCH, sw.cfg.cleanup_k}),
@@ -1013,6 +1409,13 @@ def main(argv=None) -> int:
     check(step["wrench_err"] <= TOL_STEP_U and step["u_err"] <= TOL_STEP_U
           and step["branch_rows"] <= step["rows"] // 8,
           f"stagewise card step differs from the CPU port: {step}")
+
+    del sw
+    torch.cuda.empty_cache()
+    drive_closed_loop(device, card, check, profiles if args.profile else None)
+    if args.profile:
+        args.profile.parent.mkdir(parents=True, exist_ok=True)
+        args.profile.write_text("\n".join(profiles))
 
     if failures:
         fail("; ".join(failures))

@@ -1,7 +1,16 @@
-"""Batched spiraling (micro-orbiting) MPC as a real-time-iteration SQP.
-Counterpart of the batched subset of `ft_mpc_tpu/controllers/spiraling.py`:
-`init_warmstart(_batch)`, `sqp_solve_batch`, `sqp_solve_batch_stagewise` and
-`get_control_batch` with `qp_backend='condensed'` or `'stagewise'`.
+"""Spiraling (micro-orbiting) MPC as a real-time-iteration SQP, counterpart
+of `ft_mpc_tpu/controllers/spiraling.py`.
+
+Two paths, as in the JAX package:
+  * the batched path (`init_warmstart_batch`, `sqp_solve_batch`,
+    `sqp_solve_batch_stagewise`, `get_control_batch`) on the kernels below;
+  * the per-scenario path (`sqp_solve`, `get_control`, `shift_warmstart`),
+    plain torch as the JAX package leaves it to XLA: the condensed QP by the
+    exact-refactor `solve_mpc_qp`, the stagewise one by
+    `solve_mpc_qp_stagewise`, allocation by `allocate_thrusters`.  Its core
+    (`sqp_solve_rows`, `get_control_rows`) takes a bank of rows and computes
+    for each what the JAX package's `vmap(sqp_solve)` does; `sqp_solve` and
+    `get_control` run it on one scenario.
 
 Each control step, per SQP iteration: linearize the RK4 orbit-center
 dynamics along the warm trajectory (`torch.func.vmap(jacfwd)` over the
@@ -15,20 +24,19 @@ and take a 3-candidate merit line search.  Then the worst-K scenarios get
 one cleanup iteration with a larger ADMM budget, and the first input is
 un-rotated and allocated to thrusters (kernel `csrc/alloc.cu`).
 
-Functions take batch-leading tensors with the JAX package's shapes; the
-dtype follows the inputs (float64 in the CPU parity tests, float32 on the
-card).  The per-scenario paths (`sqp_solve`, `get_control`,
-`shift_warmstart`), and with them the non-lanes stagewise modes, are not
-ported yet.
+Functions take batch-leading tensors with the JAX package's shapes (the
+per-scenario entry points take the JAX package's unbatched ones); the dtype
+follows the inputs (float64 in the CPU parity tests, float32 on the card).
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple
 
 import torch
 from torch.profiler import record_function
-from torch.utils._pytree import tree_flatten, tree_unflatten
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from ft_mpc_torch import resolve_device
 from ft_mpc_torch.geometry.scenario import Scenario, take_rows
@@ -39,14 +47,19 @@ from ft_mpc_torch.ops.dynamics import (
     robot_to_center,
 )
 from ft_mpc_torch.ops.quaternion import rot_full, rot_full_inv
-from ft_mpc_torch.solvers.allocation import AllocationResult
+from ft_mpc_torch.solvers.allocation import AllocationResult, allocate_thrusters
 from ft_mpc_torch.solvers.lanes_alloc import allocate_thrusters_lanes
 from ft_mpc_torch.solvers.lanes_condense import condense_lanes, condense_plain
 from ft_mpc_torch.solvers.lanes_qp import build_K, exact_kinv, solve_mpc_qp_lanes
-from ft_mpc_torch.solvers.mpc_qp import StructuredADMMConfig, StructuredMPCQP
+from ft_mpc_torch.solvers.mpc_qp import (
+    StructuredADMMConfig,
+    StructuredMPCQP,
+    solve_mpc_qp,
+)
 from ft_mpc_torch.solvers.mpc_qp_stagewise import (
     StagewiseConfig,
     StagewiseMPCQP,
+    solve_mpc_qp_stagewise,
     solve_mpc_qp_stagewise_lanes,
 )
 from ft_mpc_torch.terminal.poly import (
@@ -64,7 +77,7 @@ _vmap = torch.func.vmap
 
 
 class MPCConfig(NamedTuple):
-    """Static controller configuration (fields of the batched paths)."""
+    """Static controller configuration (the JAX package's fields)."""
 
     horizon: int = 15
     sqp_iters: int = 3
@@ -81,6 +94,13 @@ class MPCConfig(NamedTuple):
     cleanup_k: int = 256
     cleanup_phases: int = 2
     cleanup_rounds: int = 1
+    # Convergence-gated refinement (per-scenario path only): after the
+    # sqp_iters loop, up to refine_iters further SQP iterations, each kept
+    # only on rows where max(r_prim, du_norm) > refine_tol, with the ADMM
+    # budget refine_admm (None: admm)
+    refine_iters: int = 0
+    refine_tol: float = 1e-3
+    refine_admm: StructuredADMMConfig | None = None
     term_relax: float = 0.5
 
 
@@ -160,12 +180,16 @@ def _stage_rows(params, bank: Scenario, rows):
 
 
 class WarmStart(NamedTuple):
+    """Batched (B, ...) on the bank paths; one scenario's has no B axis."""
+
     X: torch.Tensor  # (B, Nt+1, 13) center-state trajectory
     U: torch.Tensor  # (B, Nt, 6) input deviations
     y_hull: torch.Tensor  # (B, Nt, F)
     y_term: torch.Tensor  # (B, T + E)
     rho: torch.Tensor  # (B,)
-    kinv: torch.Tensor | None = None  # (B, n, n) float32 inverse ADMM metric
+    # (B, n, n) float32 inverse ADMM metric of the condensed batched path;
+    # None on the per-scenario and stagewise paths
+    kinv: torch.Tensor | None = None
 
 
 class SQPInfo(NamedTuple):
@@ -211,6 +235,20 @@ def init_warmstart(params: BodyParams, scenario: Scenario, cfg: MPCConfig,
         y_term=torch.zeros(*lead, T + E, **kw),
         rho=torch.full(lead, cfg.admm.rho, **kw),
     )
+
+
+def shift_warmstart(warm: WarmStart, c0: torch.Tensor) -> WarmStart:
+    """One-stage shift along the horizon, pinning the first state to c0.
+
+    The appended tail repeats the last stage; y_term, rho and kinv carry
+    over unshifted, as in the JAX package.  One scenario's warm start or a
+    bank's (the horizon is the axis before the last).
+    """
+    X = torch.cat([c0[..., None, :], warm.X[..., 2:, :], warm.X[..., -1:, :]], dim=-2)
+    U = torch.cat([warm.U[..., 1:, :], warm.U[..., -1:, :]], dim=-2)
+    y_hull = torch.cat([warm.y_hull[..., 1:, :], warm.y_hull[..., -1:, :]], dim=-2)
+    return WarmStart(X=X, U=U, y_hull=y_hull, y_term=warm.y_term, rho=warm.rho,
+                     kinv=warm.kinv)
 
 
 def _stage_dynamics(params: BodyParams, scenario, x, u, u_ref_t):
@@ -300,11 +338,13 @@ def _ext_rows(weights: MPCWeights, X, S_all, phi_all, stage_offset):
 
 
 def _assemble_condensed_batch(params, bank, weights, cfg, X, U, x_ref, u_ref,
-                              hull_A, hull_b, term_A, term_b):
+                              hull_A, hull_b, term_A, term_b, condense=condense_lanes):
     """Batched linearization + condensing kernel + dense QP assembly.
 
     x_ref carries a leading scenario axis (B, Nt+1, 9).  Returns
-    (StructuredMPCQP, S_all, phi_all, defects).
+    (StructuredMPCQP, S_all, phi_all, defects).  `condense` computes the
+    prediction matrices: the kernel wrapper, or the plain recursion on the
+    per-scenario path (`_assemble_condensed`).
     """
     Nt = cfg.horizon
     dtype, dev = X.dtype, X.device
@@ -321,7 +361,7 @@ def _assemble_condensed_batch(params, bank, weights, cfg, X, U, x_ref, u_ref,
     h_hull = hull_b[:, None, :] - torch.einsum("bti,bfi->btf", stage_offset, hull_A)
 
     with record_function("ft_mpc.condense"):
-        S_all, phi_all = condense_lanes(A_stack, B_stack, defects)
+        S_all, phi_all = condense(A_stack, B_stack, defects)
     S9 = S_all[:, :, :N_OPT, :]
     e0 = X[:, 1:, :N_OPT] + phi_all[:, :, :N_OPT] - x_ref[:, 1:]
 
@@ -355,6 +395,16 @@ def _assemble_condensed_batch(params, bank, weights, cfg, X, U, x_ref, u_ref,
     qp = StructuredMPCQP(H=H, g=g, hull_A=hull_A, h_hull=h_hull,
                          G_term=G_term, h_term=h_term)
     return qp, S_all, phi_all, defects
+
+
+def _assemble_condensed(params, bank, weights, cfg, X, U, x_ref, u_ref,
+                        hull_A, hull_b, term_A, term_b):
+    """`_assemble_condensed_batch` with the plain `_condense` in the input
+    dtype, as the JAX package's per-scenario assembly condenses."""
+    return _assemble_condensed_batch(
+        params, bank, weights, cfg, X, U, x_ref, u_ref, hull_A, hull_b, term_A, term_b,
+        condense=lambda A, Bm, d: _condense(A, Bm, d, cfg.horizon),
+    )
 
 
 def _assemble_stagewise(params, bank, weights, cfg, X, U, x_ref, u_ref,
@@ -584,49 +634,132 @@ def sqp_solve_batch(params: BodyParams, bank: Scenario, weights: MPCWeights,
     return WarmStart(X=X, U=U, y_hull=yh, y_term=yt, rho=rho, kinv=kinv), info
 
 
-def _sqp_batch_stagewise_core(params, bank, weights, cfg, c0, x_ref, u_ref,
-                              warm: WarmStart):
-    """One batched stagewise SQP scan (no cleanup), `cfg.stagewise.mode='lanes'`:
-    batched assembly + `solve_mpc_qp_stagewise_lanes`, whose every ADMM
-    x-update is two kernel launches for the whole bank."""
-    if cfg.stagewise.mode != "lanes":
-        raise NotImplementedError(
-            f"batched stagewise mode {cfg.stagewise.mode!r}: only 'lanes' is "
-            "ported; the other modes run the per-scenario sqp_solve (ROADMAP A6)"
-        )
+class _Carry(NamedTuple):
+    """What one SQP iteration hands the next (batch-leading)."""
+
+    X: torch.Tensor
+    U: torch.Tensor
+    y_hull: torch.Tensor
+    y_term: torch.Tensor
+    rho: torch.Tensor
+
+
+def _sqp_iteration(params, bank, weights, cfg, x_ref, u_ref, geo, stagewise_solve,
+                   admm_cfg, carry: _Carry):
+    """One SQP iteration on B rows: assemble, solve the QP, line search.
+
+    Condensed: the plain assembly and the exact-refactor `solve_mpc_qp` with
+    `admm_cfg`.  Stagewise: `stagewise_solve` with `cfg.stagewise`; the warm
+    y_term may carry extra condensed-layout rows (state box), and only the
+    true terminal duals ride through that solver.  Returns the new carry and
+    (r_prim, r_dual, defect, du_norm, term_gap), each (B,).
+    """
+    X, U, yh, yt, rho = carry
+    B, Nt = U.shape[:2]
+    if cfg.qp_backend == "condensed":
+        qp, S_all, phi_all, defects = _assemble_condensed(
+            params, bank, weights, cfg, X, U, x_ref, u_ref, *geo)
+        with record_function("ft_mpc.qp"):
+            sol = solve_mpc_qp(qp, admm_cfg, y_hull0=yh, y_term0=yt, rho0=rho)
+        dU = sol.x.reshape(B, Nt, N_U)
+        dX = torch.einsum("btin,bn->bti", S_all, sol.x) + phi_all
+        du_raw = torch.abs(sol.x).amax(dim=1)
+        yt_new = sol.y_term
+    else:
+        qp, defects = _assemble_stagewise(params, bank, weights, cfg, X, U, x_ref, u_ref,
+                                          *geo)
+        T_rows = geo[2].shape[-2]
+        sol = stagewise_solve(qp, cfg.stagewise, y_hull0=yh, y_term0=yt[:, :T_rows],
+                              rho0=rho)
+        dU, dX = sol.dU, sol.dX[:, 1:]
+        du_raw = torch.abs(dU).amax(dim=(1, 2))
+        yt_new = torch.cat([sol.y_term, yt[:, T_rows:]], dim=1)
+    with record_function("ft_mpc.line_search"):
+        alpha = _merit_alpha(params, bank, weights, cfg, X, U, dX, dU, x_ref, u_ref, *geo)
+    a = alpha[:, None, None]
+    new = _Carry(X=torch.cat([X[:, :1], X[:, 1:] + a * dX], dim=1), U=U + a * dU,
+                 y_hull=sol.y_hull, y_term=yt_new, rho=sol.rho)
+    info = (sol.r_prim, sol.r_dual, torch.abs(defects).amax(dim=(1, 2)), alpha * du_raw,
+            sol.term_gap)
+    return new, info
+
+
+def _sqp_scan(params, bank, weights, cfg, c0, x_ref, u_ref, warm: WarmStart,
+              stagewise_solve, refine: bool):
+    """sqp_iters SQP iterations on B rows, then (with `refine`) up to
+    refine_iters gated ones, each kept only on the rows that still need it."""
     if cfg.sqp_iters < 1:
-        raise ValueError("the batched stagewise SQP needs sqp_iters >= 1")
+        raise ValueError("the SQP needs sqp_iters >= 1")
     B = c0.shape[0]
     x_ref = _per_scenario_ref(bank, x_ref, B)
     geo = _masked_geometry(bank)
-    T_rows = geo[2].shape[-2]
-
-    X = torch.cat([c0[:, None], warm.X[:, 1:]], dim=1)
-    U, yh, yt = warm.U, warm.y_hull, warm.y_term
-    rho = warm.rho.expand(B)
+    step = partial(_sqp_iteration, params, bank, weights, cfg, x_ref, u_ref, geo,
+                   stagewise_solve)
+    carry = _Carry(X=torch.cat([c0[:, None], warm.X[:, 1:]], dim=1), U=warm.U,
+                   y_hull=warm.y_hull, y_term=warm.y_term, rho=warm.rho.expand(B))
     for _ in range(cfg.sqp_iters):
-        qp, defects = _assemble_stagewise(params, bank, weights, cfg, X, U, x_ref,
-                                          u_ref, *geo)
-        # warm y_term may carry extra condensed-layout rows (state box); only
-        # the true terminal duals ride through the stagewise solver
-        ssol = solve_mpc_qp_stagewise_lanes(qp, cfg.stagewise, y_hull0=yh,
-                                            y_term0=yt[:, :T_rows], rho0=rho)
-        dU, dX = ssol.dU, ssol.dX[:, 1:]
-        with record_function("ft_mpc.line_search"):
-            alpha = _merit_alpha(params, bank, weights, cfg, X, U, dX, dU, x_ref,
-                                 u_ref, *geo)
-        a = alpha[:, None, None]
-        U = U + a * dU
-        X = torch.cat([X[:, :1], X[:, 1:] + a * dX], dim=1)
-        yh, rho = ssol.y_hull, ssol.rho
-        yt = torch.cat([ssol.y_term, yt[:, T_rows:]], dim=1)
-        defect = torch.abs(defects).amax(dim=(1, 2))
-        du_norm = alpha * torch.abs(dU).amax(dim=(1, 2))
+        carry, info = step(cfg.admm, carry)
+    if refine:
+        # The JAX package gates each refine iteration with lax.cond, a select
+        # under vmap: every row computes it, the rows that have converged keep
+        # their state.  Same values for one row or a bank, no host sync.
+        for _ in range(cfg.refine_iters):
+            need = torch.maximum(info[0], info[3]) > cfg.refine_tol
+            new, new_info = step(cfg.refine_admm or cfg.admm, carry)
+            keep = lambda a, b: torch.where(need.view(-1, *(1,) * (a.dim() - 1)), b, a)
+            carry = _Carry(*map(keep, carry, new))
+            info = tuple(map(keep, info, new_info))
+    cost = _trajectory_cost(bank, weights, carry.X, carry.U, x_ref)
+    return (WarmStart(*carry, kinv=warm.kinv),
+            SQPInfo(cost, *info))
 
-    info = SQPInfo(cost=_trajectory_cost(bank, weights, X, U, x_ref),
-                   r_prim=ssol.r_prim, r_dual=ssol.r_dual, defect=defect,
-                   du_norm=du_norm, term_gap=ssol.term_gap)
-    return WarmStart(X=X, U=U, y_hull=yh, y_term=yt, rho=rho, kinv=warm.kinv), info
+
+def sqp_solve_rows(params: BodyParams, bank: Scenario, weights: MPCWeights,
+                   cfg: MPCConfig, c0, x_ref, u_ref, warm: WarmStart):
+    """The per-scenario SQP (`sqp_solve`) on every row of a bank at once.
+
+    c0 (B, 13), x_ref (Nt+1, 9) / u_ref (Nt+1, 6) shared windows, warm
+    batched with kinv None.  Each row gets what the JAX package's
+    `vmap(sqp_solve)` gives it: the condensed backend on the exact-refactor
+    `solve_mpc_qp`, the stagewise one on `solve_mpc_qp_stagewise` in
+    `cfg.stagewise.mode`, and the gated refinement.  Plain torch: no kernel.
+    """
+    _check_backend(cfg)
+    return _sqp_scan(params, bank, weights, cfg, c0, x_ref, u_ref, warm,
+                     solve_mpc_qp_stagewise, refine=cfg.refine_iters > 0)
+
+
+def _one(tree):
+    """A tree of one scenario's tensors as a bank of one row (None stays)."""
+    return tree_map(lambda x: None if x is None else x[None], tree)
+
+
+def _first(tree):
+    return tree_map(lambda x: None if x is None else x[0], tree)
+
+
+def sqp_solve(params: BodyParams, scenario: Scenario, weights: MPCWeights,
+              cfg: MPCConfig, c0, x_ref, u_ref, warm: WarmStart):
+    """Fixed-iteration SQP on one scenario (the JAX package's shapes:
+    c0 (13,), warm without a batch axis); `sqp_solve_rows` at one row."""
+    new_warm, info = sqp_solve_rows(params, _one(scenario), weights, cfg, c0[None],
+                                    x_ref, u_ref, _one(warm))
+    return _first(new_warm), _first(info)
+
+
+def _sqp_batch_stagewise_core(params, bank, weights, cfg, c0, x_ref, u_ref,
+                              warm: WarmStart):
+    """One batched stagewise SQP scan (no cleanup).
+
+    mode='lanes' (`cfg.stagewise.mode`): batched assembly +
+    `solve_mpc_qp_stagewise_lanes`, whose every ADMM x-update is two kernel
+    launches for the whole bank.  Other modes: the per-scenario
+    `sqp_solve_rows` on the bank (the JAX package's vmap of `sqp_solve`).
+    """
+    if cfg.stagewise.mode != "lanes":
+        return sqp_solve_rows(params, bank, weights, cfg, c0, x_ref, u_ref, warm)
+    return _sqp_scan(params, bank, weights, cfg, c0, x_ref, u_ref, warm,
+                     solve_mpc_qp_stagewise_lanes, refine=False)
 
 
 def _rows(tree, idx):
@@ -699,6 +832,55 @@ def init_warmstart_batch(params: BodyParams, bank: Scenario, weights: MPCWeights
     return warm._replace(kinv=exact_kinv(K))
 
 
+def _wrench_command(scenario: Scenario, c0, u0, u_ref0):
+    """The first SQP input un-rotated: u0 + rotated nominal + compensation,
+    turned into the robot frame by the spiral frame quaternion beta."""
+    u_nom = _matvec(rot_full_inv(c0[..., 9:13]), u_ref0)
+    return _matvec(rot_full(scenario.beta), u0 + u_nom + scenario.u_comp)
+
+
+def _finalize_control(params: BodyParams, scenario: Scenario, c0, u0, u_ref0):
+    """Wrench command and its per-scenario (plain) thruster allocation."""
+    u_res = _wrench_command(scenario, c0, u0, u_ref0)
+    with record_function("ft_mpc.allocation"):
+        alloc = allocate_thrusters(
+            u_res, params.D, scenario.u_ub, scenario.faulty_force_gen,
+            scenario.hull_A, scenario.hull_b, scenario.hull_mask,
+            gen_G=scenario.gen_G, gen_c=scenario.gen_c, gen_L=scenario.gen_L,
+            max_thrust=params.max_thrust,
+        )
+    return u_res, alloc
+
+
+def get_control_rows(params: BodyParams, bank: Scenario, weights: MPCWeights,
+                     cfg: MPCConfig, x0, x_ref, u_ref, warm: WarmStart) -> ControlOutput:
+    """The per-scenario control step (`get_control`) on every row of a bank.
+
+    x0 (B, 13) robot states, warm batched (kinv None); each row gets what the
+    JAX package's `vmap(get_control)` gives it: `sqp_solve_rows`, then the
+    wrench transform and the plain `allocate_thrusters`.  No kernel runs.
+    """
+    c0 = robot_to_center(bank.r, x0)
+    new_warm, info = sqp_solve_rows(params, bank, weights, cfg, c0, x_ref, u_ref, warm)
+    u_res, alloc = _finalize_control(params, bank, c0, new_warm.U[:, 0], u_ref[0])
+    return ControlOutput(u_phys=alloc.u_phys, wrench=u_res, c0=c0, warm=new_warm,
+                         info=info, alloc=alloc)
+
+
+def get_control(params: BodyParams, scenario: Scenario, weights: MPCWeights,
+                cfg: MPCConfig, x0, x_ref, u_ref, warm: WarmStart) -> ControlOutput:
+    """One full control step for one scenario: transform, SQP, un-rotate,
+    allocate.
+
+    The JAX package's shapes: x0 (13,), one scenario, warm from
+    `init_warmstart` or `shift_warmstart` without a batch axis.  Runs
+    `get_control_rows` at one row; warm-start shifting is the caller's.
+    """
+    out = get_control_rows(params, _one(scenario), weights, cfg, x0[None], x_ref, u_ref,
+                           _one(warm))
+    return _first(out)
+
+
 def get_control_batch(params: BodyParams, bank: Scenario, weights: MPCWeights,
                       cfg: MPCConfig, x0, x_ref, u_ref, warm: WarmStart) -> ControlOutput:
     """One full control step for a scenario bank.
@@ -714,9 +896,7 @@ def get_control_batch(params: BodyParams, bank: Scenario, weights: MPCWeights,
     c0 = robot_to_center(bank.r, x0)
     solve = sqp_solve_batch_stagewise if cfg.qp_backend == "stagewise" else sqp_solve_batch
     new_warm, info = solve(params, bank, weights, cfg, c0, x_ref, u_ref, warm)
-    u_nom = _matvec(rot_full_inv(c0[:, 9:13]), u_ref[0])
-    u_res = new_warm.U[:, 0] + u_nom + bank.u_comp
-    u_res = _matvec(rot_full(bank.beta), u_res)
+    u_res = _wrench_command(bank, c0, new_warm.U[:, 0], u_ref[0])
     with record_function("ft_mpc.allocation"):
         alloc = allocate_thrusters_lanes(
             u_res, params.D, bank.u_ub, bank.faulty_force_gen,

@@ -3,9 +3,12 @@
 snapshot, and row tiling/gathering.
 
 The port cannot build banks yet (that needs the host-side geometry and
-terminal tooling); the bench's 32-pattern bank is committed as data in
-`ft_mpc_torch/data/bench_bank32.npz` (float64 leaves, flat field-path keys,
-see `ft_mpc_torch.convert`).
+terminal tooling); two snapshots are committed as data (float64 leaves, flat
+field-path keys, see `ft_mpc_torch.convert`):
+  * `data/bench_bank32.npz`: the bench's 32-pattern bank;
+  * `data/demo_bank.npz`: the demo's double fault (thrusters 10 and 11), one
+    row per terminal mode of `DEMO_TERMINAL_MODES`, built with the tuning
+    of the demo (`examples/sim.py`).
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from ft_mpc_torch.ops.dynamics import FaultState
 from ft_mpc_torch.terminal.poly import TerminalPoly
 
 BENCH_BANK = Path(__file__).resolve().parent.parent / "data" / "bench_bank32.npz"
+DEMO_BANK = BENCH_BANK.with_name("demo_bank.npz")
+DEMO_TERMINAL_MODES = ("empc", "quadratic")  # the rows of DEMO_BANK
 
 
 class Scenario(NamedTuple):
@@ -59,6 +64,17 @@ def load_bank_snapshot(
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
     return scenario_from_numpy(flat, device=device, dtype=dtype)
+
+
+def load_demo_scenario(terminal_mode: str = "empc", device=None,
+                       dtype: torch.dtype = torch.float32) -> Scenario:
+    """The demo's double-fault scenario (one scenario, no batch axis) in
+    `terminal_mode` ('empc', the certified default, or 'quadratic')."""
+    if terminal_mode not in DEMO_TERMINAL_MODES:
+        raise ValueError(f"terminal_mode {terminal_mode!r}: the demo snapshot holds "
+                         f"{DEMO_TERMINAL_MODES}")
+    row = DEMO_TERMINAL_MODES.index(terminal_mode)
+    return tree_map(lambda x: x[row], load_bank_snapshot(DEMO_BANK, device, dtype))
 
 
 def tile_bank(bank: Scenario, reps: int) -> Scenario:

@@ -24,6 +24,7 @@ import torch
 from torch.profiler import record_function
 
 from ft_mpc_torch import kernels
+from ft_mpc_torch.solvers.admm import chol_inverse
 from ft_mpc_torch.solvers.mpc_qp import StructuredADMMConfig, StructuredMPCQP
 
 N_U = 6
@@ -51,10 +52,7 @@ def exact_kinv(K: torch.Tensor) -> torch.Tensor:
     A scenario whose factorization fails gets an all-NaN inverse, as the
     JAX path does; `newton_kinv`'s rescue test sees it as non-finite.
     """
-    L, info = torch.linalg.cholesky_ex(K)
-    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device).expand_as(K)
-    X = torch.cholesky_solve(eye, L)
-    return torch.where((info != 0)[:, None, None], torch.nan, X)
+    return chol_inverse(K)
 
 
 def newton_kinv(K: torch.Tensor, X0: torch.Tensor, iters: int) -> torch.Tensor:

@@ -11,11 +11,18 @@ Splitting:  min  J(dx, du)   s.t.  dynamics (hard, inside the LQR),
             z_b = Cx dx_t <= h_box_t (optional state rows).
 
 Within a phase rho is fixed, so the Riccati quadratic data is factored once
-per phase (`lqr_factor`) and every ADMM iteration is a matvec-only re-solve:
-`lqr_resolve_lanes` in `solve_mpc_qp_stagewise_lanes` (two CUDA kernel
-launches per iteration on the card), the plain `lqr_resolve` in the
-per-scenario `solve_mpc_qp_stagewise`.  Between phases rho adapts per
-scenario by the scaled-residual rule, and (rho, duals) carry across SQP
+per phase (`lqr_factor`) and every ADMM iteration is a matvec-only re-solve.
+`cfg.mode` picks the x-update:
+  * 'lanes' (`solve_mpc_qp_stagewise_lanes`, the batched controller path):
+    `lqr_resolve_lanes`, two CUDA kernel launches per iteration on the card;
+  * 'scan': the plain sequential `lqr_resolve`;
+  * 'scan-assoc': the same factorization, re-solved by associative scans
+    (`lqr_resolve_assoc`, O(log Nt) depth);
+  * 'assoc': no factorization; every iteration solves the whole LQR by
+    associative scans (`lqr_solve(mode='assoc')`).
+The per-scenario `solve_mpc_qp_stagewise` runs the last three (and, as the
+JAX function does, 'assoc' for any other mode).  Between phases rho adapts
+per scenario by the scaled-residual rule, and (rho, duals) carry across SQP
 iterations and control steps.  The tensor ops around the re-solve are plain
 torch ops, as they are XLA ops in the JAX package.
 """
@@ -28,7 +35,13 @@ import torch
 from torch.profiler import record_function
 
 from ft_mpc_torch.solvers.lanes_riccati import lqr_resolve_lanes
-from ft_mpc_torch.solvers.riccati import lqr_factor, lqr_resolve
+from ft_mpc_torch.solvers.riccati import (
+    LQRProblem,
+    lqr_factor,
+    lqr_resolve,
+    lqr_resolve_assoc,
+    lqr_solve,
+)
 
 
 class StagewiseMPCQP(NamedTuple):
@@ -74,9 +87,10 @@ class StagewiseConfig(NamedTuple):
     adapt_clip: float = 5.0
     sigma: float = 1e-6
     alpha: float = 1.6
-    # 'scan': the per-scenario solver with the plain sequential re-solve;
-    # 'lanes': the batched solver on the kernel pair (the batched controller
-    # path).  The JAX package's 'assoc' and 'scan-assoc' are not ported.
+    # 'scan' (factored, sequential re-solve) | 'scan-assoc' (factored,
+    # associative-scan re-solve) | 'assoc' (associative-scan solve of the
+    # whole LQR every iteration) | 'lanes' (factored, the kernel pair; the
+    # batched controller path)
     mode: str = "scan"
     # Elastic terminal (and box) rows: l1 exact-penalty dual clamp.  Feasible
     # QPs whose duals stay below the clamp solve unchanged; infeasible
@@ -103,9 +117,9 @@ def _amax(x, dims):
 
 
 def _solve_batched(qp: StagewiseMPCQP, cfg: StagewiseConfig, y_hull0, y_term0, rho0,
-                   on_lanes: bool) -> StagewiseSolution:
-    """The batched solver; the re-solve runs on the kernel pair (`on_lanes`)
-    or as the plain `lqr_resolve` in the input dtype."""
+                   mode: str) -> StagewiseSolution:
+    """The batched solver; `mode` picks the x-update (module docstring):
+    the kernel pair ('lanes') or plain torch in the input dtype."""
     B, Nt, n, m = qp.B.shape
     F = qp.hull_A.shape[-2]
     dtype, dev = qp.A.dtype, qp.A.device
@@ -152,12 +166,27 @@ def _solve_batched(qp: StagewiseMPCQP, cfg: StagewiseConfig, y_hull0, y_term0, r
 
     for _ in range(cfg.phases):
         rho2, rho3 = rho[:, None], rho[:, None, None]
-        # one batched Riccati factorization for the whole phase (rho fixed)
-        with record_function("ft_mpc.lqr_factor"):
-            Q_stage = 2.0 * qp.Qx + sigma * eye_n + rho3 * CtC
-            R_stage = 2.0 * qp.Ru + sigma * eye_m + rho3 * AhTAh
-            QN = 2.0 * qp.QxN + sigma * eye_n + rho3 * (TtT + CtC)
-            fact = lqr_factor(qp.A, qp.B, qp.c, Q_stage, R_stage, QN)
+        Q_stage = 2.0 * qp.Qx + sigma * eye_n + rho3 * CtC
+        R_stage = 2.0 * qp.Ru + sigma * eye_m + rho3 * AhTAh
+        QN = 2.0 * qp.QxN + sigma * eye_n + rho3 * (TtT + CtC)
+        if mode == "assoc":
+            # the whole LQR (factorization included) every iteration
+            Q_all = Q_stage[:, None].expand(B, Nt, n, n)
+            R_all = R_stage[:, None].expand(B, Nt, m, m)
+
+            def resolve(_, q_full, r_lin, qN_lin, x0):
+                sol = lqr_solve(LQRProblem(A=qp.A, B=qp.B, c=qp.c, Q=Q_all, q=q_full,
+                                           R=R_all, r=r_lin, QN=QN, qN=qN_lin, x0=x0),
+                                mode="assoc")
+                return sol.X, sol.U
+
+            fact = None
+        else:
+            resolve = {"lanes": lqr_resolve_lanes, "scan": lqr_resolve,
+                       "scan-assoc": lqr_resolve_assoc}[mode]
+            # one batched Riccati factorization for the whole phase (rho fixed)
+            with record_function("ft_mpc.lqr_factor"):
+                fact = lqr_factor(qp.A, qp.B, qp.c, Q_stage, R_stage, QN)
         soft_t, soft_b = y_max / rho2, y_max / rho3
 
         with record_function("ft_mpc.stagewise_admm"):
@@ -170,10 +199,7 @@ def _solve_batched(qp: StagewiseMPCQP, cfg: StagewiseConfig, y_hull0, y_term0, r
                     q_lin = q_lin - rho3 * ((zb - yb / rho3) @ Cx)
                 qN_lin = q_lin[:, -1] - rho2 * (Tt @ vt[:, :, None]).squeeze(-1)
                 q_full = torch.cat([zeros_x[:, None], q_lin[:, :-1]], dim=1)
-                if on_lanes:
-                    dX_t, dU_t = lqr_resolve_lanes(fact, q_full, r_lin, qN_lin, zeros_x)
-                else:
-                    dX_t, dU_t = lqr_resolve(fact, q_full, r_lin, qN_lin, zeros_x)
+                dX_t, dU_t = resolve(fact, q_full, r_lin, qN_lin, zeros_x)
                 dX = alpha * dX_t + (1 - alpha) * dX
                 dU = alpha * dU_t + (1 - alpha) * dU
                 Gh_t, Gt_t, Gb_t = Gx(dX_t, dU_t)
@@ -253,7 +279,7 @@ def solve_mpc_qp_stagewise_lanes(
     """
     if cfg.phases < 1:
         raise ValueError("solve_mpc_qp_stagewise_lanes needs phases >= 1")
-    return _solve_batched(qp, cfg, y_hull0, y_term0, rho0, on_lanes=True)
+    return _solve_batched(qp, cfg, y_hull0, y_term0, rho0, mode="lanes")
 
 
 def solve_mpc_qp_stagewise(
@@ -263,18 +289,22 @@ def solve_mpc_qp_stagewise(
     y_term0: torch.Tensor | None = None,
     rho0: torch.Tensor | None = None,
 ) -> StagewiseSolution:
-    """Per-scenario stagewise solve (mode='scan'): the batched solver at
-    B = 1 with the plain `lqr_resolve` in the input dtype."""
-    if cfg.mode != "scan":
-        raise NotImplementedError(
-            f"stagewise mode {cfg.mode!r} on the per-scenario solver: the "
-            "associative-scan re-solves are not ported (ROADMAP A6)"
-        )
+    """Per-scenario stagewise solve, in plain torch in the input dtype.
+
+    Takes one scenario's QP (leaves as documented on `StagewiseMPCQP`) or a
+    bank of them with one leading batch axis on every leaf (the per-scenario
+    path run on many rows at once).  mode 'scan' or 'scan-assoc' factor once
+    per phase; any other mode, 'lanes' included, solves by associative scans
+    every iteration ('assoc'), as the JAX function does.
+    """
     if cfg.phases < 1:
         raise ValueError("solve_mpc_qp_stagewise needs phases >= 1")
+    mode = cfg.mode if cfg.mode in ("scan", "scan-assoc") else "assoc"
+    if qp.B.dim() == 4:
+        return _solve_batched(qp, cfg, y_hull0, y_term0, rho0, mode=mode)
     lead = lambda x: None if x is None else x[None]
     sol = _solve_batched(
         StagewiseMPCQP(*(lead(x) for x in qp)), cfg, lead(y_hull0), lead(y_term0),
-        None if rho0 is None else torch.as_tensor(rho0).reshape(1), on_lanes=False,
+        None if rho0 is None else torch.as_tensor(rho0).reshape(1), mode=mode,
     )
     return StagewiseSolution(*(x[0] for x in sol))

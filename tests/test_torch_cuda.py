@@ -316,3 +316,83 @@ def test_stagewise_step_card_matches_cpu(dev):
     same = (branch(outs[0]) == branch(outs[1])).all(dim=1).numpy()
     assert same.sum() >= B - 1
     np.testing.assert_allclose(np_(outs[0].u_phys)[same], np_(outs[1].u_phys)[same], atol=2e-2)
+
+
+def _loop_setup(device, B, Nt):
+    cfg = sp.MPCConfig(
+        horizon=Nt, sqp_iters=2, newton_iters=3, cleanup_iters=100, cleanup_k=4,
+        admm=StructuredADMMConfig(iters=60, phases=1, rho=50.0, adapt_clip=1.5),
+    )
+    traj = generate_trajectory("hover", 0.1, 5)
+    xr, ur = prepare_center_trajectory(traj, np.array([0.0, 0.0, 0.6]), 16.8, 0.1, Nt + 1)
+    rng = np.random.default_rng(0)
+    x0 = np.zeros((B, 13))
+    x0[:, 0:3] = rng.uniform(-0.4, 0.4, (B, 3))
+    q = rng.standard_normal((B, 4))
+    x0[:, 6:10] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    t = lambda a: torch.as_tensor(a, dtype=F32, device=device)
+    w = sp.MPCWeights.from_diagonals([1] * 6 + [2] * 3, [0.1] * 3 + [0.01] * 3, device=device)
+    return (BodyParams.default(0.1, device=device), _bank(B, device), w, cfg, t(x0), t(xr),
+            t(ur))
+
+
+def test_closed_loop_card_matches_cpu_same_state(dev, monkeypatch):
+    """3 steps of `batched_rollout_lanes` at B=32 on the card; the CPU port
+    takes every step's controller call from the card's state and warm start
+    (comparing two loops rolled apart would measure chaos, not the port)."""
+    from ft_mpc_torch.sim import env
+
+    B, Nt, steps = 32, 8, 3
+    calls = []
+    real = env.get_control_batch
+
+    def recording(*args):
+        out = real(*args)
+        calls.append((args, out))
+        return out
+
+    monkeypatch.setattr(env, "get_control_batch", recording)
+    params, bank, w, cfg, x0, xr, ur = _loop_setup(dev, B, Nt)
+    n0 = (lc.condense_lanes.launches, lq.admm_lanes.launches, la.allocate_thrusters_lanes.launches)
+    hist = env.batched_rollout_lanes(params, bank, w, cfg, env.SimConfig(steps=steps,
+                                     noise_mode="none"), x0, xr, ur)
+    torch.cuda.synchronize()
+    n1 = (lc.condense_lanes.launches, lq.admm_lanes.launches, la.allocate_thrusters_lanes.launches)
+    # per step: condensing 2 + 1 (cleanup), ADMM 2 + 2 (cleanup phases),
+    # allocation 1; the warm start condenses once more
+    assert tuple(b - a for a, b in zip(n0, n1)) == (3 * steps + 1, 4 * steps, steps)
+    assert hist.u_phys.shape == (B, steps, 16) and torch.isfinite(hist.state).all()
+    assert len(calls) == steps
+    cpu = _loop_setup(torch.device("cpu"), B, Nt)
+    for args, out in calls:
+        x0_s, xr_s, ur_s, warm = args[4:]
+        warm_c = type(warm)(*(None if t is None else t.cpu() for t in warm))
+        ref = sp.get_control_batch(*cpu[:4], x0_s.cpu(), xr_s.cpu(), ur_s.cpu(), warm_c)
+        np.testing.assert_allclose(np_(out.wrench), np_(ref.wrench), atol=2e-2)
+        branch = lambda o: torch.stack([o.alloc.was_clipped, o.alloc.used_fallback], 1).cpu()
+        same = (branch(out) == branch(ref)).all(dim=1).numpy()
+        assert same.sum() >= B - B // 8
+        np.testing.assert_allclose(np_(out.u_phys)[same], np_(ref.u_phys)[same], atol=2e-2)
+
+
+def test_rollout_refuses_noise_without_generator(dev):
+    """On the card as on the CPU: noise is drawn only from a generator the
+    caller passes, on the tensors' device."""
+    from ft_mpc_torch.geometry.scenario import load_demo_scenario
+    from ft_mpc_torch.sim import env
+
+    sc = load_demo_scenario("quadratic", device=dev)
+    params = BodyParams.default(0.1, device=dev)
+    w = sp.MPCWeights.from_diagonals([1] * 6 + [2] * 3, [0.1] * 3 + [0.01] * 3, device=dev)
+    cfg = sp.MPCConfig(horizon=6, sqp_iters=1)
+    traj = generate_trajectory("hover", 0.1, 2)
+    xr, ur = prepare_center_trajectory(traj, np_(sc.omega_des), 16.8, 0.1, 7)
+    t = lambda a: torch.as_tensor(a, dtype=F32, device=dev)
+    x0 = np.zeros(13)
+    x0[9] = 1.0
+    args = (params, sc, w, cfg, env.SimConfig(steps=2), t(x0), t(xr), t(ur))
+    with pytest.raises(ValueError, match="torch.Generator"):
+        env.rollout(*args)
+    hist = env.rollout(*args, torch.Generator(device=dev).manual_seed(0))
+    assert hist.state.device.type == "cuda" and torch.isfinite(hist.state).all()
+    assert hist.u_phys.shape == (2, 16)

@@ -8,6 +8,10 @@
    with a scratch copy of the terminal cache so the repo's cache is never
    written.  `write_bench_bank` (also `python tests/test_torch_isolation.py`)
    regenerates the snapshot.
+3. `ft_mpc_torch/data/demo_bank.npz` equals a fresh build of the demo's
+   double fault (thrusters 10 and 11, `ft_mpc_tpu/config/reactive.yaml`)
+   in terminal modes 'empc' and 'quadratic', with the tuning
+   `examples/sim.py` builds it with; `write_demo_bank` regenerates it.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 SNAPSHOT = REPO / "ft_mpc_torch" / "data" / "bench_bank32.npz"
+DEMO_SNAPSHOT = REPO / "ft_mpc_torch" / "data" / "demo_bank.npz"
 TERMINAL_CACHE = REPO / "ft_mpc_tpu" / "config" / "terminal_cache"
 
 
@@ -43,31 +48,20 @@ def bench_fault_patterns():
     return pats[:32]
 
 
-def build_bench_bank_flat(cache_dir) -> dict[str, np.ndarray]:
-    """The bench bank from the JAX package as a flat dict, float leaves float64.
-
-    Built exactly as bench.py builds it, with 64-bit mode off (float32
-    plant, whose fingerprint keys the cached terminal ingredients), then
-    widened to float64 without loss.
-    """
+def _build_flat(builds) -> dict[str, np.ndarray]:
+    """Scenarios from the JAX package, stacked into a flat dict with float
+    leaves float64: `builds(params)` returns the scenarios, each built with
+    64-bit mode off (float32 plant, whose fingerprint keys the cached
+    terminal ingredients), then widened to float64 without loss."""
     import jax
 
     from ft_mpc_torch.convert import flatten_namedtuple
-    from ft_mpc_tpu.api import DEFAULT_TUNING, _build_scenario_with_terminal
     from ft_mpc_tpu.ops.dynamics import BodyParams
 
     x64 = jax.config.jax_enable_x64
     jax.config.update("jax_enable_x64", False)
     try:
-        params = BodyParams.default(0.1)
-        flats = [
-            flatten_namedtuple(
-                _build_scenario_with_terminal(
-                    params, f, DEFAULT_TUNING, cache_dir=cache_dir
-                )
-            )
-            for f in bench_fault_patterns()
-        ]
+        flats = [flatten_namedtuple(sc) for sc in builds(BodyParams.default(0.1))]
     finally:
         jax.config.update("jax_enable_x64", x64)
     stacked = {k: np.stack([f[k] for f in flats]) for k in flats[0]}
@@ -77,13 +71,56 @@ def build_bench_bank_flat(cache_dir) -> dict[str, np.ndarray]:
     }
 
 
-def write_bench_bank(path=SNAPSHOT) -> None:
-    """Regenerate the committed snapshot (terminal cache used from a copy)."""
+def build_bench_bank_flat(cache_dir) -> dict[str, np.ndarray]:
+    """The bench bank from the JAX package, built exactly as bench.py builds it."""
+    from ft_mpc_tpu.api import DEFAULT_TUNING, _build_scenario_with_terminal
+
+    return _build_flat(lambda params: [
+        _build_scenario_with_terminal(params, f, DEFAULT_TUNING, cache_dir=cache_dir)
+        for f in bench_fault_patterns()
+    ])
+
+
+def demo_tuning() -> dict:
+    """The tuning `examples/sim.py` builds its scenario with: DEFAULT_TUNING
+    updated by the default run configuration (config/reactive.yaml)."""
+    from ft_mpc_tpu.api import DEFAULT_TUNING
+    from ft_mpc_tpu.utils.config import load_config
+
+    return {**DEFAULT_TUNING, **load_config(None).tuning}
+
+
+def build_demo_bank_flat(cache_dir) -> dict[str, np.ndarray]:
+    """The demo's double fault (10, 11), one row per terminal mode of
+    `ft_mpc_torch.geometry.scenario.DEMO_TERMINAL_MODES`."""
+    from ft_mpc_torch.geometry.scenario import DEMO_TERMINAL_MODES
+    from ft_mpc_tpu.api import _build_scenario_with_terminal
+    from ft_mpc_tpu.utils.faults import BrokenThruster
+
+    faults = [BrokenThruster(10, 1.0), BrokenThruster(11, 1.0)]
+    return _build_flat(lambda params: [
+        _build_scenario_with_terminal(params, faults, demo_tuning(), terminal_mode=mode,
+                                      cache_dir=cache_dir)
+        for mode in DEMO_TERMINAL_MODES
+    ])
+
+
+def _write(build, path) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         cache = Path(tmp) / "terminal_cache"
         shutil.copytree(TERMINAL_CACHE, cache)
-        flat = build_bench_bank_flat(str(cache))
+        flat = build(str(cache))
     np.savez_compressed(path, **flat)
+
+
+def write_bench_bank(path=SNAPSHOT) -> None:
+    """Regenerate the committed snapshot (terminal cache used from a copy)."""
+    _write(build_bench_bank_flat, path)
+
+
+def write_demo_bank(path=DEMO_SNAPSHOT) -> None:
+    """Regenerate the committed demo snapshot (terminal cache from a copy)."""
+    _write(build_demo_bank_flat, path)
 
 
 def test_port_imports_no_jax():
@@ -107,22 +144,46 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
 
 
-def test_snapshot_matches_fresh_jax_build(tmp_path):
+def _check_fresh(build, path, tmp_path) -> dict[str, np.ndarray]:
     cache = tmp_path / "terminal_cache"
     shutil.copytree(TERMINAL_CACHE, cache)
     before = sorted(p.name for p in cache.iterdir())
-    fresh = build_bench_bank_flat(str(cache))
+    fresh = build(str(cache))
     # every pattern is already cached: the build adds no cache file
     assert sorted(p.name for p in cache.iterdir()) == before
-    with np.load(SNAPSHOT) as z:
+    with np.load(path) as z:
         snap = {k: z[k] for k in z.files}
     assert sorted(snap) == sorted(fresh)
     for k in fresh:
         assert snap[k].dtype == fresh[k].dtype, k
         np.testing.assert_array_equal(snap[k], fresh[k], err_msg=k)
+    return snap
+
+
+def test_snapshot_matches_fresh_jax_build(tmp_path):
+    snap = _check_fresh(build_bench_bank_flat, SNAPSHOT, tmp_path)
     assert snap["hull_A"].shape == (32, 32, 6)
     assert snap["term_A"].shape == (32, 64, 9)
 
 
+def test_demo_snapshot_matches_fresh_jax_build(tmp_path):
+    import torch
+
+    from ft_mpc_torch.geometry.scenario import DEMO_TERMINAL_MODES, load_demo_scenario
+
+    snap = _check_fresh(build_demo_bank_flat, DEMO_SNAPSHOT, tmp_path)
+    assert snap["hull_A"].shape == (2, 32, 6)
+    np.testing.assert_array_equal(snap["fault.broken"][:, 10:12], 1.0)
+    assert snap["fault.broken"].sum() == 4
+    for row, mode in enumerate(DEMO_TERMINAL_MODES):
+        sc = load_demo_scenario(mode, device="cpu", dtype=torch.float64)
+        assert sc.hull_A.shape == (32, 6)
+        np.testing.assert_array_equal(sc.term.P.numpy(), snap["term.P"][row])
+    # the two modes differ in their terminal ingredients only
+    assert not np.array_equal(snap["term.P"][0], snap["term.P"][1])
+    np.testing.assert_array_equal(snap["gen_G"][0], snap["gen_G"][1])
+
+
 if __name__ == "__main__":
     write_bench_bank()
+    write_demo_bank()

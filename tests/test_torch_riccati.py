@@ -99,8 +99,11 @@ def test_factor_resolve_matches_scan_oracle(rng):
     jsol = jax.vmap(jr.lqr_solve)(jprob)
     for a, b in zip(sol, jsol):
         np.testing.assert_allclose(np_(a), np.asarray(b), rtol=0, atol=1e-10)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tr.lqr_solve(prob, mode="assoc")
+    # the associative-scan solve reaches the same optimum
+    # (tests/test_torch_riccati_assoc.py holds it against the JAX package)
+    assoc = tr.lqr_solve(prob, mode="assoc")
+    for a, b in zip(assoc, sol):
+        np.testing.assert_allclose(np_(a), np_(b), rtol=0, atol=1e-9)
 
 
 @pytest.mark.parametrize("B", [3, 1])

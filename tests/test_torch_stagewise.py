@@ -143,10 +143,20 @@ def test_scan_solver_matches_jax_f64(case):
 
 @pytest.mark.parametrize("mode", ["assoc", "scan-assoc"])
 def test_unported_modes_raise(mode):
-    tqp = stagewise_qp_from_numpy(synthetic_qp(np.random.default_rng(0)), device="cpu",
-                                  dtype=F64)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tsw.solve_mpc_qp_stagewise(tqp, tsw.StagewiseConfig(mode=mode))
+    """The associative-scan modes of the per-scenario solver give what mode
+    'scan' gives on the same QP, for one scenario and for a bank of three
+    (`tests/test_torch_riccati_assoc.py` holds them against the JAX package)."""
+    rng = np.random.default_rng(0)
+    one = synthetic_qp(rng)
+    bank = stack([one] + [synthetic_qp(rng) for _ in range(2)])
+    for flat in (one, bank):
+        tqp = stagewise_qp_from_numpy(flat, device="cpu", dtype=F64)
+        got = tsw.solve_mpc_qp_stagewise(tqp, tsw.StagewiseConfig(mode=mode))
+        ref = tsw.solve_mpc_qp_stagewise(tqp, tsw.StagewiseConfig(mode="scan"))
+        for name in got._fields:
+            np.testing.assert_allclose(np_(getattr(got, name)), np_(getattr(ref, name)),
+                                       rtol=1e-8, atol=1e-8, err_msg=name)
+    assert got.dU.shape == (3, 9, 6)
 
 
 # ---------------------------------------------------------------------------
@@ -311,16 +321,43 @@ def test_controller_module_serves_stagewise():
 
 @pytest.mark.parametrize("mode", ["scan", "scan-assoc", "assoc"])
 def test_batched_non_lanes_modes_raise(mode):
+    """`get_control_batch` on the stagewise backend in a mode other than
+    'lanes' runs the per-scenario SQP on every row (the JAX package's vmap of
+    `sqp_solve`), with the worst-1 cleanup: two rows against the JAX package
+    in float64, the wrench and warm start at 1e-6.  Both packages allocate
+    this step with the float32 allocation kernel (the port's plain version,
+    the JAX one in interpret mode): u_phys at its class, 2e-3 N
+    (`tests/test_lanes_alloc.py:75-78`)."""
     Nt = 4
     s = _setup()
-    _, tcfg = _configs(Nt)
+    jcfg, tcfg = _configs(Nt, cleanup_iters=20, cleanup_k=1, cleanup_phases=1)
+    jcfg = jcfg._replace(stagewise=jcfg.stagewise._replace(mode=mode))
     tcfg = tcfg._replace(stagewise=tcfg.stagewise._replace(mode=mode))
-    x_ref, u_ref = (t64(a) for a in _refs(Nt))
-    x0 = t64(s["x0"])
-    warm = tsp.init_warmstart_batch(s["tp"], s["tbank"], s["tw"], tcfg,
-                                    t_robot_to_center(s["tbank"].r, x0), x_ref, u_ref)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tsp.get_control_batch(s["tp"], s["tbank"], s["tw"], tcfg, x0, x_ref, u_ref, warm)
+    x_ref, u_ref = _refs(Nt)
+    rows = [0, 1]
+    jbank = jax.tree.map(lambda a: a[jnp.asarray(rows)], s["jbank"])
+    jx0 = jnp.asarray(s["x0"][rows])
+    jargs = (s["jp"], jbank, s["jw"], jcfg)
+    jxr, jur = jnp.asarray(x_ref), jnp.asarray(u_ref)
+    jw0 = _jax_init(*jargs, jax.vmap(j_robot_to_center)(jbank.r, jx0), jxr, jur)
+    j1 = _jax_step(*jargs, jx0, jxr, jur, jw0)
+
+    tbank = tsp.take_rows(s["tbank"], torch.tensor(rows))
+    x0 = t64(s["x0"][rows])
+    targs = (s["tp"], tbank, s["tw"], tcfg)
+    launches = (tlr.riccati_bwd_lanes.launches, tlr.riccati_fwd_lanes.launches)
+    warm = tsp.init_warmstart_batch(*targs, t_robot_to_center(tbank.r, x0), t64(x_ref),
+                                    t64(u_ref))
+    t1 = tsp.get_control_batch(*targs, x0, t64(x_ref), t64(u_ref), warm)
+    assert launches == (tlr.riccati_bwd_lanes.launches, tlr.riccati_fwd_lanes.launches)
+    tol = dict(rtol=0, atol=1e-6)
+    np.testing.assert_allclose(np_(t1.wrench), np.asarray(j1.wrench), **tol)
+    np.testing.assert_array_equal(np_(t1.alloc.was_clipped), np.asarray(j1.alloc.was_clipped))
+    np.testing.assert_allclose(np_(t1.u_phys), np.asarray(j1.u_phys), rtol=0, atol=2e-3)
+    for name in ("X", "U", "y_hull", "y_term", "rho"):
+        np.testing.assert_allclose(np_(getattr(t1.warm, name)),
+                                   np.asarray(getattr(j1.warm, name)), **tol, err_msg=name)
+    np.testing.assert_allclose(np_(t1.info.r_prim), np.asarray(j1.info.r_prim), **tol)
 
 
 def test_unknown_backend_raises():
