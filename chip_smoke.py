@@ -46,6 +46,22 @@
      `batched_rollout` at B=128 for 20 steps, `rollout_with_fault_schedule`
      (healthy, then (10, 11) from step 15 of 40), and the stagewise backend
      (mode 'scan', horizon 60) for 5 steps.
+7. Drives banks built by the port itself (`ft_mpc_torch.api`,
+   `geometry.scenario`), each run with the launch counters zeroed just
+   before and read just after:
+   - builds all 137 fault classes of bench.py's census (healthy, 16 singles,
+     120 doubles) with `build_scenario_with_terminal(..., DEFAULT_TUNING)`
+     from the terminal cache on the host, and holds its first 32 rows leaf
+     for leaf against `ft_mpc_torch/data/bench_bank32.npz`;
+   - runs the condensed configuration of section 2 on that bank tiled to
+     B=2048 and on `build_randomized_bank(n=2048, seed=0)` (per-row mass and
+     inertia, the rows' own states), 3 + 10 steps each: plant and launch
+     gates (3 / 5 / 1 a step), kernels 1-3 held on each bank's own inputs,
+     and one whole step card vs CPU port on 64 / 32 rows;
+   - runs the condensed path at B=256 and horizons 20, 38 (ADMM with K^-1 in
+     shared memory) and 40 (K^-1 and G_term in device memory) for 2 steps
+     each, and holds the ADMM kernel against its plain version on each
+     run's last QP (T=64, 60 iterations).
 
 Prints the card's name and power limit, one JSON line with every kernel's
 numbers, and as its last line {"ok": true, "device": {...}}.  Exits with a
@@ -144,6 +160,14 @@ DEMO_ERR_GATE = 0.1  # m, final orbit-centre position error of the demo
 SCEN_BATCH = (128, 20)  # (B, steps) of batched_rollout (examples/sim.py --batch 128)
 SCHEDULE = (15, 40)  # (switch step, steps), tests/test_mpc.py:188-212
 SW_ROLLOUT = (60, 5)  # (horizon, steps) of the per-scenario stagewise rollout
+# section 7: banks built by the port
+PORT_WARMUP = 3
+PORT_STEPS = 10
+PORT_SMALL = (64, 32)  # rows of the card-vs-CPU step: census bank, randomized bank
+TOL_BANK = 1e-12  # the port's bench rows against bench_bank32.npz (float64)
+C2_HORIZONS = (20, 38, 40)  # K^-1 in shared memory to Nt=38, in device memory beyond
+C2_BATCH = 256
+C2_STEPS = 2
 CONDENSED_KERNELS = ("condense_lanes", "admm_lanes", "allocate_thrusters_lanes")
 STAGEWISE_KERNELS = ("riccati_bwd_lanes", "riccati_fwd_lanes",
                      "allocate_thrusters_lanes")
@@ -168,7 +192,11 @@ def card_line() -> str:
 class Ctx:
     """Everything the main path needs, on one device and dtype."""
 
-    def __init__(self, device, dtype, B: int, x0=None, stagewise_horizon: int = 0):
+    def __init__(self, device, dtype, B: int, x0=None, stagewise_horizon: int = 0,
+                 bank=None, params=None, horizon: int = 0):
+        """`bank` (tiled over its rows to B; default the 32-pattern snapshot)
+        and `params` (default BodyParams.default) give another bank and
+        plant; `horizon` another horizon of the condensed configuration."""
         from ft_mpc_torch.controllers import spiraling as sp
         from ft_mpc_torch.geometry.scenario import load_bank_snapshot, take_rows, tile_bank
         from ft_mpc_torch.ops.dynamics import BodyParams
@@ -180,10 +208,13 @@ class Ctx:
         )
 
         self.sp, self.device = sp, device
-        bank32 = load_bank_snapshot(device=device, dtype=dtype)
-        bank = tile_bank(bank32, -(-B // 32))
+        if bank is None:
+            bank = load_bank_snapshot(device=device, dtype=dtype)
+        bank = tree_to(bank, device, dtype)
+        bank = tile_bank(bank, -(-B // len(bank.r)))
         self.bank = take_rows(bank, torch.arange(B, device=device))
-        self.params = BodyParams.default(0.1, dtype=dtype, device=device)
+        self.params = (BodyParams.default(0.1, dtype=dtype, device=device) if params is None
+                       else tree_to(params, device, dtype))
         self.weights = sp.MPCWeights.from_diagonals(Q_DIAG, R_DIAG, dtype=dtype,
                                                     device=device)
         if stagewise_horizon:
@@ -200,13 +231,13 @@ class Ctx:
             default_x0 = long_horizon_x0
         else:
             # bench.py's deployed config
-            Nt = HORIZON
+            Nt = horizon or HORIZON
             self.cfg = sp.MPCConfig(
                 horizon=Nt, sqp_iters=2,
                 admm=StructuredADMMConfig(iters=60, phases=1, rho=50.0, adapt_clip=1.5),
                 newton_iters=3, cleanup_iters=600, cleanup_k=256, cleanup_phases=3,
             )
-            traj = generate_trajectory("hover", 0.1, 5)
+            traj = generate_trajectory("hover", 0.1, max(5, (Nt + 2) * 0.1))
             default_x0 = bench_x0
         x_ref, u_ref = prepare_center_trajectory(
             traj, np.array([0.0, 0.0, 0.6]), 16.8, 0.1, Nt + 1
@@ -224,6 +255,14 @@ class Ctx:
     def step(self, warm):
         return self.sp.get_control_batch(self.params, self.bank, self.weights, self.cfg,
                                          self.x0, self.x_ref, self.u_ref, warm)
+
+
+def tree_to(tree, device, dtype):
+    """A NamedTuple of tensors on `device`; float leaves cast to `dtype`."""
+    from torch.utils._pytree import tree_map
+
+    return tree_map(lambda x: x.to(device, dtype) if x.is_floating_point()
+                    else x.to(device), tree)
 
 
 def bench_x0(B: int) -> np.ndarray:
@@ -346,10 +385,9 @@ def build_kernels() -> float:
 def drive_main_path(ctx: Ctx, warmup: int = WARMUP, steps: int = STEPS):
     """init + warmup + steps chained steps; launch counts zeroed before, read
     after."""
-    from ft_mpc_torch.solvers.lanes_qp import newton_kinv
+    from ft_mpc_torch.solvers.lanes_qp import admm_lanes, newton_kinv
 
-    for fn in counters().values():
-        fn.launches = 0
+    zero_counters()
     newton_kinv.rescues = 0
     t0 = time.perf_counter()
     warm = ctx.init()
@@ -367,7 +405,8 @@ def drive_main_path(ctx: Ctx, warmup: int = WARMUP, steps: int = STEPS):
         sync(ctx.device)
         samples.append(1e3 * (time.perf_counter() - t0))
         warm = out.warm
-    launches = {name: fn.launches for name, fn in counters().items()}
+    launches = read_counters()
+    by_design = dict(admm_lanes.launches_by_design)
     rescues = newton_kinv.rescues
     samples = np.asarray(samples)
     windows = samples[: len(samples) // 10 * 10].reshape(-1, 10).mean(axis=1)
@@ -383,6 +422,7 @@ def drive_main_path(ctx: Ctx, warmup: int = WARMUP, steps: int = STEPS):
         "steps": warmup + steps,
         "launches": launches,
         "launches_per_step": {k: v / (warmup + steps) for k, v in launches.items()},
+        "admm_launches_by_design": by_design,
         "newton_rescues": rescues,
         "slowest_steps_ms": {int(i): float(samples[i])
                              for i in np.argsort(samples)[::-1][:5]},
@@ -674,6 +714,25 @@ def check_alloc_main(ctx: Ctx, out) -> dict:
     }
 
 
+def hold_alloc_main(c: Ctx, c_out, path: str, check) -> None:
+    """Kernel 3 on a path's own wrenches, with the gates of the C1 rule."""
+    am = check_alloc_main(c, c_out)
+    log(f"alloc on the {path} path's wrenches (B={am['rows']}; control: plain "
+        "float32 vs plain float64): " + json.dumps(am))
+    check(am["u_err"] <= TOL_ALLOC_MAIN,
+          f"allocation kernel: max |du| {am['u_err']} > {TOL_ALLOC_MAIN} on the "
+          f"{path} path's rows with equal branches")
+    check(am["branch_rows"] <= MAX_FLIP_SHARE * am["rows"],
+          f"allocation kernel, {path} path: branches differ on {am['branch_rows']} "
+          f"of {am['rows']} rows")
+    check(am["hull_flips_off_threshold"] == 0,
+          f"allocation kernel, {path} path: the hull test differs on a row off its "
+          "threshold")
+    check(all(e > FALLBACK_EQ_ERR / 2 for e in am["fallback_flips_kept_eq_err"]),
+          f"allocation kernel, {path} path: the fallback choice differs on a row "
+          "far from its threshold")
+
+
 def time_alloc_main(ctx: Ctx, out, label: str) -> dict:
     """Kernel 3 timed on a path's own wrenches (its batch and bank rows)."""
     from ft_mpc_torch.solvers.lanes_alloc import _alloc_cuda
@@ -787,7 +846,7 @@ def check_riccati(ctx: Ctx, fact, q, r, qN, x0, label: str, reps: int = 20) -> l
 
 
 def card_vs_cpu(device, x0: np.ndarray, stagewise_horizon: int = 0,
-                steps: int = 1) -> dict:
+                steps: int = 1, **ctx_kw) -> dict:
     """init + `steps` chained whole steps on the card and in the port's CPU
     run, float32 both, on the first len(x0) bank rows from states x0; the
     condensed step, or the stagewise one at `stagewise_horizon`.  Every step
@@ -799,12 +858,13 @@ def card_vs_cpu(device, x0: np.ndarray, stagewise_horizon: int = 0,
     on a hull facet (an active constraint), so the hull test is decided by
     rounding, and the clipped branch's 60-step FISTA projection moves u by up
     to ~1 N (the float64 CPU run differs from the float32 one in the same
-    way).  Those rows are counted.
+    way).  Those rows are counted.  `ctx_kw` (bank, params) go to Ctx.
     """
     rows = len(x0)
     outs = []
     for dev in (device, torch.device("cpu")):
-        ctx = Ctx(dev, torch.float32, rows, x0=x0, stagewise_horizon=stagewise_horizon)
+        ctx = Ctx(dev, torch.float32, rows, x0=x0, stagewise_horizon=stagewise_horizon,
+                  **ctx_kw)
         warm, per_step = ctx.init(), []
         for _ in range(steps):
             o = ctx.step(warm)
@@ -868,8 +928,11 @@ class StepRecorder:
 
 
 def zero_counters() -> None:
+    from ft_mpc_torch.solvers.lanes_qp import admm_lanes
+
     for fn in counters().values():
         fn.launches = 0
+    admm_lanes.launches_by_design = dict.fromkeys(admm_lanes.launches_by_design, 0)
 
 
 def read_counters() -> dict:
@@ -1230,6 +1293,165 @@ def drive_closed_loop(device, card: str, check, profiles: list | None = None) ->
     check(none(swr), f"stagewise rollout launched a kernel: {swr['launches']}")
 
 
+# ---------------------------------------------------------------------------
+# section 7: banks built by the port (ft_mpc_torch.api, geometry.scenario)
+# ---------------------------------------------------------------------------
+
+
+def port_census_bank(check) -> tuple:
+    """7a: all 137 DEFAULT_TUNING fault classes of bench.py's census built by
+    the port on the host, from the terminal cache (81 searched orbits, 4
+    quadratic fallbacks), float32; its first 32 rows, the bench's patterns,
+    held leaf for leaf (as float64) against the committed snapshot.
+    Returns (the 137-row bank on the host, host seconds, max |difference|)."""
+    from ft_mpc_torch.api import DEFAULT_TUNING, build_scenario_with_terminal
+    from ft_mpc_torch.convert import flatten_namedtuple
+    from ft_mpc_torch.geometry.scenario import BENCH_BANK, default_fault_pool, stack_scenarios
+    from ft_mpc_torch.ops.dynamics import BodyParams
+
+    cpu = torch.device("cpu")
+    plant = BodyParams.default(0.1, dtype=torch.float32, device=cpu)
+    t0 = time.perf_counter()
+    scs = [build_scenario_with_terminal(plant, f, DEFAULT_TUNING, device=cpu)
+           for f in default_fault_pool()]
+    bank = stack_scenarios(scs, device=cpu, dtype=torch.float32)
+    host_s = time.perf_counter() - t0
+    bench = flatten_namedtuple(stack_scenarios(scs[:32], device=cpu,
+                                               dtype=torch.float64).scenarios)
+    with np.load(BENCH_BANK) as z:
+        snap = {k: z[k] for k in z.files}
+    check(sorted(bench) == sorted(snap), "port's bench bank: leaves differ from the snapshot's")
+    err = max(float(np.abs(bench[k] - snap[k]).max()) for k in snap if k in bench)
+    return bank, host_s, err
+
+
+def port_bank_path(device, label: str, check, bank, small_rows, params=None,
+                   x0=None) -> None:
+    """7b / 7c: the condensed configuration of section 2 at B=2048 on a bank
+    the port built (tiled to BATCH), PORT_WARMUP + PORT_STEPS chained steps
+    with the launch counters zeroed before and read after, the plant and
+    launch gates, kernels 1-3 held against their plain versions on this
+    bank's own inputs, and one whole step on `small_rows` rows against the
+    CPU port."""
+    ctx = Ctx(device, torch.float32, BATCH, x0=x0, bank=bank, params=params)
+    res, warm, out = drive_main_path(ctx, PORT_WARMUP, PORT_STEPS)
+    u, ub = out.u_phys.double(), ctx.bank.u_ub.double()
+    res["u_below_0"] = float(torch.clamp(-u, min=0).max())
+    res["u_above_ub"] = float(torch.clamp(u - ub, min=0).max())
+    res["max_broken_u"] = float(u[ub <= 0].abs().max()) if bool((ub <= 0).any()) else 0.0
+    log(f"{label}: " + json.dumps(res))
+    log(f"{label} (B={BATCH}, Nt={HORIZON}, {PORT_WARMUP}+{PORT_STEPS} steps): "
+        f"p50 {res['p50_ms']:.3f} ms, p99 {res['p99_ms']:.3f} ms, "
+        f"{res['solves_per_s']:.1f} solves/s, max_r_prim {res['max_r_prim']:.3e}, "
+        f"max_term_gap {res['max_term_gap']:.5f} (neither gated), launches per step "
+        f"{res['launches_per_step']}")
+    check(res["finite"], f"{label}: non-finite outputs")
+    check(res["u_below_0"] <= 1e-6 and res["u_above_ub"] <= 1e-6,
+          f"{label}: u_phys outside [0, u_ub] by {res['u_below_0']}, {res['u_above_ub']}")
+    check(res["max_broken_u"] <= 1e-6,
+          f"{label}: a broken thruster commanded {res['max_broken_u']}")
+    n = PORT_WARMUP + PORT_STEPS
+    want = {k: m * n + (k == "condense_lanes") for k, m in LOOP_LAUNCHES.items()}
+    want.update(riccati_bwd_lanes=0, riccati_fwd_lanes=0)
+    check(res["launches"] == want, f"{label}: launches {res['launches']}, expected {want} "
+          "(3 / 5 / 1 a step and the warm start's condensing)")
+
+    krows = [check_condense(ctx, warm),
+             check_admm(ctx, admm_inputs(ctx, warm, ctx.weights), ctx.cfg.admm.iters,
+                        "T=64")]
+    for r in krows:
+        r["shape"] = f"{label}: {r['shape']}"
+        log("kernel: " + json.dumps(with_share(r)))
+        ok = (r["max_abs_err"] <= r["tol"]) if "tol" in r else (r["max_rel_err"] <= r["tol_rel"])
+        check(ok and np.isfinite(r["max_abs_err"]),
+              f"{r['name']} ({r['shape']}) disagrees with its plain version")
+    hold_alloc_main(ctx, out, label, check)
+
+    sub = ctx.sp.take_rows(ctx.bank, small_rows)
+    sub_params = ctx.sp._params_row(ctx.params, ctx.sp.params_batch_axes(ctx.params),
+                                    small_rows)
+    step = card_vs_cpu(device, ctx.x0[small_rows].cpu().numpy(), bank=sub, params=sub_params)
+    log(f"{label}, whole step card vs CPU port ({step['rows']} rows, float32): "
+        f"max |dwrench| {step['wrench_err']:.3e}, max |du_phys| {step['u_err']:.3e} "
+        f"(tol {TOL_STEP_U}) on the rows whose allocation took the same branches; "
+        f"{step['branch_rows']} rows on a branch threshold")
+    check(step["finite"], f"{label}: card step is not finite")
+    check(step["wrench_err"] <= TOL_STEP_U and step["u_err"] <= TOL_STEP_U
+          and step["branch_rows"] <= step["rows"] // 8,
+          f"{label}: card step differs from the CPU port: {step}")
+
+
+def c2_horizons(device, check, bank) -> dict:
+    """7d: the condensed path at B=C2_BATCH on the port's census bank at the
+    horizons of C2_HORIZONS (K^-1 in shared memory up to Nt=38, in device
+    memory beyond), C2_STEPS chained steps each with the counters zeroed
+    before and read after; then the ADMM kernel held against its plain
+    version (TOL_ADMM, relative) on each run's last QP, T=64, 60
+    iterations, and timed beside its bound.  Returns {Nt: kernel row}."""
+    from ft_mpc_torch.solvers.lanes_qp import admm_design
+
+    rows = {}
+    for Nt in C2_HORIZONS:
+        ctx = Ctx(device, torch.float32, C2_BATCH, bank=bank, horizon=Nt)
+        res, warm, _ = drive_main_path(ctx, 0, C2_STEPS)
+        design = admm_design(Nt, ctx.bank.hull_A.shape[1], ctx.bank.term_A.shape[1])
+        by = res["admm_launches_by_design"]
+        log(f"condensed path at Nt={Nt} (B={C2_BATCH}, {C2_STEPS} steps): p50 "
+            f"{res['p50_ms']:.3f} ms, max_r_prim {res['max_r_prim']:.3e}, ADMM design "
+            f"'{design}', launches {res['launches']}, ADMM by design {by}")
+        check(res["finite"], f"condensed path at Nt={Nt}: non-finite outputs")
+        check(by[design] == 5 * C2_STEPS and res["launches"]["admm_lanes"] == 5 * C2_STEPS,
+              f"condensed path at Nt={Nt}: ADMM launches {by}, expected 5 a step of "
+              f"design '{design}'")
+        r = check_admm(ctx, admm_inputs(ctx, warm, ctx.weights), ctx.cfg.admm.iters,
+                       f"C2 Nt={Nt} ({design} design)", reps=5)
+        r["launches"] = by[design]
+        r["design"] = design
+        log("kernel: " + json.dumps(with_share(r)))
+        check(r["max_rel_err"] <= r["tol_rel"] and np.isfinite(r["max_abs_err"]),
+              f"admm_lanes ({r['shape']}) disagrees with its plain version")
+        rows[Nt] = r
+        del ctx, warm
+        torch.cuda.empty_cache()
+    check(rows[40]["design"] == "device" and rows[38]["design"] == "shared",
+          f"ADMM designs at Nt=38/40: {rows[38]['design']}, {rows[40]['design']}")
+    return rows
+
+
+def drive_port_banks(device, card: str, check) -> dict:
+    """Section 7; returns the new kernel row (the device-memory ADMM design)."""
+    from ft_mpc_torch.geometry.scenario import build_randomized_bank
+    from ft_mpc_torch.ops.dynamics import BodyParams
+
+    census, host_s, err = port_census_bank(check)
+    log(f"port-built banks: the 137 DEFAULT_TUNING classes built on the host in "
+        f"{host_s:.3f} s; the bench's 32 rows against bench_bank32.npz: max |diff| "
+        f"{err:.3e} (tol {TOL_BANK})")
+    check(err <= TOL_BANK, f"port's bench bank differs from the snapshot by {err}")
+    span = torch.as_tensor(np.linspace(0, len(census.scenarios.r) - 1, PORT_SMALL[0])
+                           .round().astype(np.int64))
+    port_bank_path(device, "census bank (137 classes tiled)", check, census.scenarios, span)
+
+    t0 = time.perf_counter()
+    plant = BodyParams.default(0.1, dtype=torch.float32, device="cpu")
+    rbank, rparams, rx0 = build_randomized_bank(plant, BATCH, seed=0, device=device)
+    sync(device)
+    build_s = time.perf_counter() - t0
+    log(f"randomized bank (build_randomized_bank, n={BATCH}, seed 0): built in "
+        f"{build_s:.3f} s on the host, per-row mass {float(rparams.mass.min()):.4f}.."
+        f"{float(rparams.mass.max()):.4f} kg; card: {card}")
+    port_bank_path(device, "randomized bank", check, rbank.scenarios,
+                   torch.arange(PORT_SMALL[1]), params=rparams, x0=rx0.cpu().numpy())
+    del rbank, rparams, rx0
+    torch.cuda.empty_cache()
+
+    c2 = c2_horizons(device, check, census.scenarios)
+    row = dict(c2[40])
+    row["name"] = "admm_lanes (K^-1 in device memory)"
+    return row
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=Path, metavar="FILE",
@@ -1324,24 +1546,7 @@ def main(argv=None) -> int:
           and 0 < facets["clipped"] < facets["rows"],
           "allocation kernel decides the hull test wrongly off its threshold")
 
-    def hold_alloc_main(c: Ctx, c_out, path: str) -> None:
-        am = check_alloc_main(c, c_out)
-        log(f"alloc on the {path} path's wrenches (B={am['rows']}; control: plain "
-            "float32 vs plain float64): " + json.dumps(am))
-        check(am["u_err"] <= TOL_ALLOC_MAIN,
-              f"allocation kernel: max |du| {am['u_err']} > {TOL_ALLOC_MAIN} on the "
-              f"{path} path's rows with equal branches")
-        check(am["branch_rows"] <= MAX_FLIP_SHARE * am["rows"],
-              f"allocation kernel, {path} path: branches differ on {am['branch_rows']} "
-              f"of {am['rows']} rows")
-        check(am["hull_flips_off_threshold"] == 0,
-              f"allocation kernel, {path} path: the hull test differs on a row off its "
-              "threshold")
-        check(all(e > FALLBACK_EQ_ERR / 2 for e in am["fallback_flips_kept_eq_err"]),
-              f"allocation kernel, {path} path: the fallback choice differs on a row "
-              "far from its threshold")
-
-    hold_alloc_main(ctx, out, "condensed")
+    hold_alloc_main(ctx, out, "condensed", check)
 
     for label, x0 in (("states near the terminal sets", gentle_x0(64)),
                       ("bench states", bench_x0(64))):
@@ -1374,7 +1579,7 @@ def main(argv=None) -> int:
     check(not zero, f"kernels never launched on the stagewise path: {zero}")
     check(sw_res["launches"]["condense_lanes"] == 0 and sw_res["launches"]["admm_lanes"] == 0,
           "the stagewise path launched a kernel of the condensed path")
-    hold_alloc_main(sw, sw_out, "stagewise")
+    hold_alloc_main(sw, sw_out, "stagewise", check)
     log("kernel: " + json.dumps(with_share(time_alloc_main(sw, sw_out, "stagewise path"))))
     if args.profile:
         profiles.append(profile_steps(sw, sw_warm, f"stagewise B={SW_BATCH} Nt={SW_HORIZON}", n=1))
@@ -1413,6 +1618,8 @@ def main(argv=None) -> int:
     del sw
     torch.cuda.empty_cache()
     drive_closed_loop(device, card, check, profiles if args.profile else None)
+    torch.cuda.empty_cache()
+    rows.append(drive_port_banks(device, card, check))
     if args.profile:
         args.profile.parent.mkdir(parents=True, exist_ok=True)
         args.profile.write_text("\n".join(profiles))

@@ -53,6 +53,22 @@
 // the state-box and rate rows) run admm_smem_kernel, the first design:
 // K^{-1} and, where it fits beside it, G_term in shared memory; otherwise
 // G_term is read from device memory every iteration.
+//
+// Where K^{-1} does not fit in shared memory (Nt >= 39 at F=32, T=64) the
+// same kernel runs with K^{-1} and G_term left in device memory and read
+// through L2 every iteration, one block a scenario (admm_smem_kernel<false>,
+// the "device-memory design"): each warp takes rows of K^{-1} and reads a
+// row with its 32 lanes on neighbouring addresses, then sums across the
+// warp.  The hull state (hh, zh, yh) and the vectors stay in shared memory
+// as in the first design; where the hull state does not fit either
+// (Nt > ~470 at F=32, T=64) it is kept in the output arrays in device memory.
+// Bound at B=256, Nt=40, T=64, 60 iterations: ~225 kFLOP a
+// scenario-iteration, 3.45 GFLOP, ~52 us at 67 TFLOP/s, against 59 MB of
+// K^{-1} read once (~18 us); read 60 times it is ~3.5 GB, which is what a
+// block that cannot hold K^{-1} pays where the resident blocks' K^{-1}
+// outgrow the 50 MB L2.  It takes 6.1 ms on an H100 SXM at 700 W
+// (chip_smoke.py): each warp reads its rows one after another, so the
+// design is simple and right, not fast.
 #include "common.cuh"
 
 namespace {
@@ -330,9 +346,21 @@ __host__ __device__ inline size_t admm_smem_floats(int Nt, int F, int T,
   return s;
 }
 
-// K^{-1} is stored transposed so that in the matvec neighbouring threads
-// (rows i) read neighbouring addresses; G_term is staged with an odd row
-// stride (n+1), and the hull arrays with stride F+1, free of bank conflicts.
+__host__ __device__ inline size_t admm_gmem_floats(int Nt, int F, int T,
+                                                   bool hull_shared) {
+  const size_t n = static_cast<size_t>(Nt) * NU;
+  size_t s = static_cast<size_t>(F) * NU + 4 * n + 3 * T;
+  if (hull_shared) s += 3 * static_cast<size_t>(Nt) * (F + 1);
+  return s;
+}
+
+// With kKinvShared, K^{-1} is stored transposed so that in the matvec
+// neighbouring threads (rows i) read neighbouring addresses; G_term is
+// staged with an odd row stride (n+1), and the hull arrays with stride F+1,
+// free of bank conflicts.  Without it, K^{-1} and G_term stay in device
+// memory (gt_shared is 0), and with hull_shared 0 so do hh, zh and yh:
+// hh is read from h_hull and zh, yh live in zh_out, yh_out.
+template <bool kKinvShared>
 __global__ void __launch_bounds__(SMEM_THREADS) admm_smem_kernel(
     const float* __restrict__ Kinv,    // (B, n, n)
     const float* __restrict__ hull_A,  // (B, F, 6)
@@ -349,23 +377,25 @@ __global__ void __launch_bounds__(SMEM_THREADS) admm_smem_kernel(
     float* __restrict__ x_out, float* __restrict__ zh_out,
     float* __restrict__ zt_out, float* __restrict__ yh_out,
     float* __restrict__ yt_out, int Nt, int F, int T, float sigma,
-    float alpha, int iters, float y_max, int gt_shared) {
+    float alpha, int iters, float y_max, int gt_shared, int hull_shared) {
   extern __shared__ float sm[];
   const int n = Nt * NU;
-  const int ldh = F + 1;
   const int H = Nt * F;
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
+  const size_t bn = static_cast<size_t>(b);
 
-  float* KT = sm;                    // n*n, KT[k*n + i] = Kinv[i][k]
-  float* Ah = KT + n * n;            // F*6
-  float* hh = Ah + F * NU;           // Nt*(F+1)
-  float* zh = hh + Nt * ldh;         // Nt*(F+1)
-  float* yh = zh + Nt * ldh;         // Nt*(F+1)
-  float* gv = yh + Nt * ldh;         // n
+  float* KT = sm;                    // n*n, KT[k*n + i] = Kinv[i][k] (kKinvShared)
+  float* Ah = kKinvShared ? KT + n * n : sm;  // F*6
+  float* sh = Ah + F * NU;           // 3*Nt*(F+1) when hull_shared
+  const int ldh = hull_shared ? F + 1 : F;
+  const float* hh = hull_shared ? sh : h_hull + bn * H;           // Nt*ldh
+  float* zh = hull_shared ? sh + Nt * ldh : zh_out + bn * H;      // Nt*ldh
+  float* yh = hull_shared ? sh + 2 * Nt * ldh : yh_out + bn * H;  // Nt*ldh
+  float* gv = hull_shared ? sh + 3 * Nt * ldh : sh;  // n
   float* x = gv + n;                 // n
   float* rhs = x + n;                // n
   float* xt = rhs + n;               // n
@@ -374,12 +404,13 @@ __global__ void __launch_bounds__(SMEM_THREADS) admm_smem_kernel(
   float* yt = zt + T;                // T
   float* Gs = yt + T;                // T*(n+1) when gt_shared
 
-  const size_t bn = static_cast<size_t>(b);
   const float* Kb = Kinv + bn * n * n;
-  for (int idx = tid; idx < n * n; idx += blockDim.x) {
-    const int i = idx / n;
-    const int k = idx - i * n;
-    KT[k * n + i] = Kb[idx];
+  if (kKinvShared) {
+    for (int idx = tid; idx < n * n; idx += blockDim.x) {
+      const int i = idx / n;
+      const int k = idx - i * n;
+      KT[k * n + i] = Kb[idx];
+    }
   }
   for (int idx = tid; idx < F * NU; idx += blockDim.x)
     Ah[idx] = hull_A[bn * F * NU + idx];
@@ -387,7 +418,7 @@ __global__ void __launch_bounds__(SMEM_THREADS) admm_smem_kernel(
     const int t = idx / F;
     const int f = idx - t * F;
     const size_t src = bn * H + idx;
-    hh[t * ldh + f] = h_hull[src];
+    if (hull_shared) sh[t * ldh + f] = h_hull[src];
     zh[t * ldh + f] = zh0[src];
     yh[t * ldh + f] = yh0[src];
   }
@@ -431,10 +462,22 @@ __global__ void __launch_bounds__(SMEM_THREADS) admm_smem_kernel(
     }
     __syncthreads();
     // (2) x~ = K^{-1} rhs
-    for (int i = tid; i < n; i += blockDim.x) {
-      float acc = 0.f;
-      for (int k = 0; k < n; ++k) acc += KT[k * n + i] * rhs[k];
-      xt[i] = acc;
+    if (kKinvShared) {
+      for (int i = tid; i < n; i += blockDim.x) {
+        float acc = 0.f;
+        for (int k = 0; k < n; ++k) acc += KT[k * n + i] * rhs[k];
+        xt[i] = acc;
+      }
+    } else {
+      for (int i = warp; i < n; i += nwarps) {  // a warp a row, lanes along it
+        const float* Ki = Kb + static_cast<size_t>(i) * n;
+        float part = 0.f;
+        for (int k = lane; k < n; k += 32) part += Ki[k] * rhs[k];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          part += __shfl_xor_sync(0xffffffffu, part, off);
+        if (lane == 0) xt[i] = part;
+      }
     }
     __syncthreads();
     // (3) relaxation, z projections, dual ascent
@@ -477,11 +520,13 @@ __global__ void __launch_bounds__(SMEM_THREADS) admm_smem_kernel(
   }
 
   for (int i = tid; i < n; i += blockDim.x) x_out[bn * n + i] = x[i];
-  for (int idx = tid; idx < H; idx += blockDim.x) {
-    const int t = idx / F;
-    const int f = idx - t * F;
-    zh_out[bn * H + idx] = zh[t * ldh + f];
-    yh_out[bn * H + idx] = yh[t * ldh + f];
+  if (hull_shared) {  // else zh, yh are already in place
+    for (int idx = tid; idx < H; idx += blockDim.x) {
+      const int t = idx / F;
+      const int f = idx - t * F;
+      zh_out[bn * H + idx] = zh[t * ldh + f];
+      yh_out[bn * H + idx] = yh[t * ldh + f];
+    }
   }
   for (int r = tid; r < T; r += blockDim.x) {
     zt_out[bn * T + r] = zt[r];
@@ -495,6 +540,17 @@ int admm_gt_shared(int Nt, int F, int T) {
 }
 
 }  // namespace
+
+// The design admm_f32 runs at these sizes: 0 registers (admm_reg_kernel),
+// 1 K^{-1} in shared memory (admm_smem_kernel<true>), 2 K^{-1} in device
+// memory (admm_smem_kernel<false>), -1 none (shared memory too small even
+// for the vectors; n above ~14,000).
+extern "C" int admm_design(int Nt, int F, int T) {
+  if (admm_fits_registers(Nt, F, T)) return 0;
+  if (admm_smem_floats(Nt, F, T, false) * sizeof(float) <= SMEM_CAP) return 1;
+  if (admm_gmem_floats(Nt, F, T, false) * sizeof(float) <= SMEM_CAP) return 2;
+  return -1;
+}
 
 extern "C" int admm_f32(const void* Kinv, const void* hull_A,
                         const void* h_hull, const void* G_term,
@@ -516,7 +572,8 @@ extern "C" int admm_f32(const void* Kinv, const void* hull_A,
   float* out[5] = {static_cast<float*>(x_out), static_cast<float*>(zh_out),
                    static_cast<float*>(zt_out), static_cast<float*>(yh_out),
                    static_cast<float*>(yt_out)};
-  if (admm_fits_registers(Nt, F, T)) {
+  const int design = admm_design(Nt, F, T);
+  if (design == 0) {
     const int warps = (Nt + 1) / 2;  // two stages per warp
     admm_reg_kernel<<<B, warps * WARP, 0, st>>>(
         in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9],
@@ -524,14 +581,28 @@ extern "C" int admm_f32(const void* Kinv, const void* hull_A,
         alpha, iters, y_max);
     return static_cast<int>(cudaGetLastError());
   }
-  const int gt_shared = admm_gt_shared(Nt, F, T);
-  const size_t smem = admm_smem_floats(Nt, F, T, gt_shared != 0) * sizeof(float);
-  if (smem > SMEM_CAP) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = ftmpc_allow_smem(admm_smem_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  admm_smem_kernel<<<B, SMEM_THREADS, smem, st>>>(
-      in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9],
-      in[10], in[11], out[0], out[1], out[2], out[3], out[4], Nt, F, T, sigma,
-      alpha, iters, y_max, gt_shared);
-  return static_cast<int>(cudaGetLastError());
+  if (design == 1) {
+    const int gt_shared = admm_gt_shared(Nt, F, T);
+    const size_t smem = admm_smem_floats(Nt, F, T, gt_shared != 0) * sizeof(float);
+    cudaError_t err = ftmpc_allow_smem(admm_smem_kernel<true>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    admm_smem_kernel<true><<<B, SMEM_THREADS, smem, st>>>(
+        in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9],
+        in[10], in[11], out[0], out[1], out[2], out[3], out[4], Nt, F, T, sigma,
+        alpha, iters, y_max, gt_shared, 1);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (design == 2) {
+    const int hull_shared =
+        admm_gmem_floats(Nt, F, T, true) * sizeof(float) <= SMEM_CAP ? 1 : 0;
+    const size_t smem = admm_gmem_floats(Nt, F, T, hull_shared != 0) * sizeof(float);
+    cudaError_t err = ftmpc_allow_smem(admm_smem_kernel<false>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    admm_smem_kernel<false><<<B, SMEM_THREADS, smem, st>>>(
+        in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9],
+        in[10], in[11], out[0], out[1], out[2], out[3], out[4], Nt, F, T, sigma,
+        alpha, iters, y_max, 0, hull_shared);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

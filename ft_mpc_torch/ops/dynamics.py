@@ -65,11 +65,39 @@ class BodyParams(NamedTuple):
         )
 
 
+def fault_arrays(faults) -> tuple[np.ndarray, np.ndarray]:
+    """(broken, intensity), float64 (16,), of an iterable of
+    `BrokenThruster`-like (index, intensity)."""
+    broken = np.zeros(N_THRUSTERS)
+    intensity = np.zeros(N_THRUSTERS)
+    for f in faults:
+        broken[f.index] = 1.0
+        intensity[f.index] = f.intensity
+    return broken, intensity
+
+
+def host_array(x) -> np.ndarray:
+    """A leaf as a host numpy array of its own dtype (tensor on any device,
+    numpy array or Python number)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
 class FaultState(NamedTuple):
     """Thruster fault pattern as data: broken 0/1 mask, stuck-on intensity."""
 
     broken: torch.Tensor  # (16,)
     intensity: torch.Tensor  # (16,)
+
+    @classmethod
+    def from_faults(cls, faults, device=None,
+                    dtype: torch.dtype = torch.float32) -> "FaultState":
+        """From an iterable of `BrokenThruster`-like (index, intensity)."""
+        broken, intensity = fault_arrays(faults)
+        dev = resolve_device(device)
+        as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+        return cls(broken=as_t(broken), intensity=as_t(intensity))
 
     def faulty_force(self, params: BodyParams) -> torch.Tensor:
         return self.broken * self.intensity * params.max_thrust

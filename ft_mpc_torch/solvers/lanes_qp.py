@@ -174,12 +174,29 @@ def _admm_cuda(Kinv, hull_A, h_hull, G_term, h_term, g, x0, zh0, zt0, yh0, yt0,
         + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_float,
            ctypes.c_void_p],
     )
+    design = admm_design(Nt, F, T)
     err = fn(*(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
              B, Nt, F, T, float(sigma), float(alpha), int(iters),
              float(elastic_y_max), kernels.stream_of(Kinv))
     kernels.check("admm", "admm_f32", err)
     admm_lanes.launches += 1
+    admm_lanes.launches_by_design[design] += 1
     return tuple(outs)
+
+
+ADMM_DESIGNS = ("registers", "shared", "device")
+
+
+def admm_design(Nt: int, F: int, T: int) -> str:
+    """Which design of `csrc/admm.cu` admm_f32 runs at these sizes:
+    'registers' (K^-1 and G_term in registers: Nt <= 16, F <= 32, T <= 64),
+    'shared' (K^-1 in shared memory, Nt <= 38 at F=32, T=64) or 'device'
+    (K^-1 and G_term read from device memory).  Asks the built library."""
+    fn = kernels.function("admm", "admm_design", [ctypes.c_int] * 3)
+    code = fn(int(Nt), int(F), int(T))
+    if code < 0:
+        raise ValueError(f"admm_lanes: no kernel design takes Nt={Nt}, F={F}, T={T}")
+    return ADMM_DESIGNS[code]
 
 
 def admm_lanes(Kinv, hull_A, h_hull, G_term, h_term, g, x0, zh0, zt0, yh0, yt0,
@@ -214,6 +231,7 @@ def admm_lanes(Kinv, hull_A, h_hull, G_term, h_term, g, x0, zh0, zt0, yh0, yt0,
 
 
 admm_lanes.launches = 0
+admm_lanes.launches_by_design = dict.fromkeys(ADMM_DESIGNS, 0)  # of `launches`
 
 
 # ---------------------------------------------------------------------------

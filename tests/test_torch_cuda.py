@@ -111,24 +111,32 @@ def admm_case(gen, T, device, B=260, Nt=15, F=32, masked=False):
             zeros(qp.h_hull), zeros(qp.h_term), rho]
 
 
-@pytest.mark.parametrize("B,Nt,F,T,y_max", [
-    (260, 15, 32, 64, 1e3),   # the main path's shape: register tiles, 8 warps
-    (256, 15, 32, 64, 0.0),   # the cleanup's batch, hinge prox off
-    (3, 15, 20, 37, 1e3),     # masked facets, a partly filled second row tile
-    (1, 15, 20, 1, 0.0),
-    (3, 1, 32, 64, 1e3),      # one stage: one warp, one live column of six
-    (1, 1, 20, 37, 0.0),
-    (260, 15, 32, 596, 1e3),  # state box and rate rows: the shared-memory design,
-    (3, 15, 20, 596, 0.0),    # G_term read from device memory
+@pytest.mark.parametrize("B,Nt,F,T,y_max,design", [
+    (260, 15, 32, 64, 1e3, "registers"),  # the main path's shape: 8 warps
+    (256, 15, 32, 64, 0.0, "registers"),  # the cleanup's batch, hinge prox off
+    (3, 15, 20, 37, 1e3, "registers"),    # masked facets, a partly filled row tile
+    (1, 15, 20, 1, 0.0, "registers"),
+    (3, 1, 32, 64, 1e3, "registers"),     # one stage: one warp, one live column of six
+    (1, 1, 20, 37, 0.0, "registers"),
+    (260, 15, 32, 596, 1e3, "shared"),    # state box and rate rows: K^-1 in shared
+    (3, 15, 20, 596, 0.0, "shared"),      # memory, G_term read from device memory
+    (256, 20, 32, 64, 1e3, "shared"),     # longer horizons: K^-1 and G_term in
+    (256, 38, 32, 64, 0.0, "shared"),     # shared memory up to Nt = 38,
+    (256, 40, 32, 64, 1e3, "device"),     # then both read from device memory
+    (64, 60, 32, 64, 1e3, "device"),
 ])
-def test_admm_kernel_matches_plain(dev, gen, B, Nt, F, T, y_max):
+def test_admm_kernel_matches_plain(dev, gen, B, Nt, F, T, y_max, design):
     """admm_f32 keeps K^-1 and G_term in registers for Nt <= 16, F <= 32,
-    T <= 64, and runs its shared-memory design beyond."""
+    T <= 64, K^-1 in shared memory where it fits, and reads K^-1 and G_term
+    from device memory beyond (Nt >= 39 at F=32, T=64)."""
     args = admm_case(gen, T, dev, B=B, Nt=Nt, F=F, masked=F < 32)
+    assert lq.admm_design(Nt, F, T) == design
     n0 = lq.admm_lanes.launches
+    d0 = lq.admm_lanes.launches_by_design[design]
     out = lq.admm_lanes(*args, 1e-6, 1.6, 60, y_max)
     torch.cuda.synchronize()
     assert lq.admm_lanes.launches == n0 + 1
+    assert lq.admm_lanes.launches_by_design[design] == d0 + 1
     ref = lq.admm_plain(*[a.contiguous() for a in args], 1e-6, 1.6, 60, y_max)
     assert all(torch.isfinite(r).all() for r in ref)
     np.testing.assert_allclose(np_(out[0]), np_(ref[0]), atol=5e-5)

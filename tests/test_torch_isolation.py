@@ -1,7 +1,10 @@
 """ft_mpc_torch stands alone, and its committed bank snapshot is the bench bank.
 
 1. A fresh interpreter imports every ft_mpc_torch module; neither `jax`
-   nor any `ft_mpc_tpu` module may end up in sys.modules.
+   nor any `ft_mpc_tpu` module may end up in sys.modules.  A copy of the
+   package builds its C++ hull engine into its own `build/` and builds a
+   bank with it, without JAX, and leaves the JAX package's engine library
+   (`ft_mpc_tpu/runtime/libftmpc_runtime.so`) as it found it.
 2. `ft_mpc_torch/data/bench_bank32.npz` equals, leaf for leaf, a fresh
    build by the JAX package of the 32 patterns `bench.py:59-69` tiles
    (healthy, all 16 singles, the doubles (0, j) for j = 1..15), built
@@ -132,7 +135,12 @@ def test_port_imports_no_jax():
         "    importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'ft_mpc_tpu'))]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 22, names\n"
+        "assert len(names) >= 33, names\n"
+        "for n in ('api', 'geometry.polytope', 'geometry.zonotope', 'geometry.invariant',\n"
+        "          'geometry.scenario', 'runtime.native', 'terminal.quadratic',\n"
+        "          'terminal.pipeline', 'terminal.reference_io', 'utils.faults',\n"
+        "          'utils.config', 'controllers.spiral_params'):\n"
+        "    assert 'ft_mpc_torch.' + n in names, n\n"
         "print(len(names))\n"
     )
     env = dict(os.environ)
@@ -142,6 +150,44 @@ def test_port_imports_no_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
+
+
+def test_port_builds_its_own_hull_engine(tmp_path):
+    """The port's engine builds into <checkout>/build/, never into or from
+    the JAX package's tracked library; a copy of the checkout's two
+    packages (the JAX one only for its data and engine files) keeps the
+    JAX package's own tests, which may rebuild that library, out of the way."""
+    shutil.copytree(REPO / "ft_mpc_torch", tmp_path / "ft_mpc_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    runtime = tmp_path / "ft_mpc_tpu" / "runtime"
+    runtime.mkdir(parents=True)
+    jax_lib = runtime / "libftmpc_runtime.so"
+    shutil.copy2(REPO / "ft_mpc_tpu" / "runtime" / "libftmpc_runtime.so", jax_lib)
+    shutil.copy2(REPO / "ft_mpc_tpu" / "runtime" / "zonotope_native.cpp", runtime)
+    os.utime(jax_lib, ns=(1, 1))  # older than its source: the JAX package would rebuild
+    before = jax_lib.read_bytes()
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "from ft_mpc_torch.geometry.scenario import build_scenario_bank, default_fault_pool\n"
+        "from ft_mpc_torch.ops.dynamics import BodyParams\n"
+        "from ft_mpc_torch.runtime import native\n"
+        "p = BodyParams.default(0.1, torch.float32, 'cpu')\n"
+        "bank = build_scenario_bank(p, default_fault_pool()[:20], device='cpu')\n"
+        "assert bank.scenarios.hull_mask.sum(dim=1).min() > 0\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'ft_mpc_tpu'))]\n"
+        "assert not bad, bad\n"
+        "print(native.lib_path())\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(tmp_path)
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lib = Path(out.stdout.strip().splitlines()[-1])
+    assert lib.parent == tmp_path / "build" and lib.is_file()
+    assert lib.name.startswith("zonotope_native-")
+    assert jax_lib.read_bytes() == before and jax_lib.stat().st_mtime_ns == 1
 
 
 def _check_fresh(build, path, tmp_path) -> dict[str, np.ndarray]:
