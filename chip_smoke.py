@@ -40,9 +40,11 @@
      the allocation kernel held on the last step's wrenches;
    - 3 closed-loop steps at B=32 (one row per pattern, no noise), each step
      also taken by the port's CPU run from the card's state and warm start;
-   - the per-scenario path, which launches no kernel: the demo
-     (`examples/sim.py`: the (10, 11) double fault, 300 steps of hover,
-     'reference' noise; its final orbit-centre error gated below 0.1 m),
+   - the per-scenario path, which launches no kernel: the demo through its
+     own entry point (`ft_mpc_torch.examples.sim.main`, as
+     `examples/sim.py` runs it: the (10, 11) double fault, 300 steps of
+     hover, 'reference' noise; its final orbit-centre error gated below
+     0.1 m),
      `batched_rollout` at B=128 for 20 steps, `rollout_with_fault_schedule`
      (healthy, then (10, 11) from step 15 of 40), and the stagewise backend
      (mode 'scan', horizon 60) for 5 steps.
@@ -62,6 +64,28 @@
      shared memory) and 40 (K^-1 and G_term in device memory) for 2 steps
      each, and holds the ADMM kernel against its plain version on each
      run's last QP (T=64, 60 iterations).
+
+8. Drives the user-facing slice (`ft_mpc_torch.api`, the demo, the
+   accuracy harness, the offline pipeline):
+   - the terminal pipeline on the card for healthy, (8, 9) (a searched
+     orbit) and (12, 13) (the quadratic fallback), each a miss of an empty
+     cache, against the committed entry: orbit, emax, r_empc and the
+     terminal set exactly, the grid's feasible points against the committed
+     run's (those decided otherwise on the 1e-4 threshold), P9, p9 and c
+     within 1e-3; host seconds and the grid's batched ADMM time;
+   - `SpiralingMPC` and `SimulationEnvironment` at the demo's tuning from
+     the demo's state, 20 steps, `set_fault` with a single fault the
+     committed cache lacks (timed), 20 more steps; the broken thruster at
+     most 1e-6 N; `to_history` and `export_csv` (67 columns);
+   - the demo's `main` with --batch 16, its duration cut to 3 s, cache
+     misses through the pipeline;
+   - the whole lanes step at B=1 (the accuracy harness's lanes leg: cleanup
+     K=1 over 4 rounds) for 3 chained steps, launches counted, each step
+     against the CPU port from the card's state and warm start, and kernels
+     1-3 against their plain versions on the last step's inputs;
+   - `kkt_residuals` in float64 at a converged per-scenario solution;
+   - the accuracy harness (`ft_mpc_torch.benchmarks.accuracy`) for
+     ACC_STEPS steps with the gates those steps reach.
 
 Prints the card's name and power limit, one JSON line with every kernel's
 numbers, and as its last line {"ok": true, "device": {...}}.  Exits with a
@@ -168,6 +192,18 @@ TOL_BANK = 1e-12  # the port's bench rows against bench_bank32.npz (float64)
 C2_HORIZONS = (20, 38, 40)  # K^-1 in shared memory to Nt=38, in device memory beyond
 C2_BATCH = 256
 C2_STEPS = 2
+# section 8: the user-facing API, the demo, the accuracy harness, the pipeline
+PIPELINE_PATTERNS = (("healthy", ()), ("8_9", (8, 9)), ("12_13", (12, 13)))
+TOL_PIPE = 1e-3  # P9, p9, c: rtol, atol TOL_PIPE max|P9| (tests/test_torch_pipeline.py)
+THRESHOLD_BAND = 20.0  # a grid point decided otherwise has r_prim within 20x of 1e-4
+API_STEPS = (20, 20)  # SimulationEnvironment steps before and after the runtime fault
+DEMO_BATCH = 16
+DEMO_DURATION = 3.0  # s of the --batch demo (the configuration's 30 s, cut to fit)
+ACC_STEPS = 3  # the accuracy leg, cut from the harness's 120 to fit (about 30 s a step
+#   on an H100: the float64 golden's 25 SQP iterations of 900 ADMM iterations); it
+#   reaches none of the harness's gates (the first from step 20), so it holds
+#   finiteness and the lanes leg's kernel launches; the 120 steps run separately
+LANES_B1_STEPS = 3
 CONDENSED_KERNELS = ("condense_lanes", "admm_lanes", "allocate_thrusters_lanes")
 STAGEWISE_KERNELS = ("riccati_bwd_lanes", "riccati_fwd_lanes",
                      "allocate_thrusters_lanes")
@@ -1067,22 +1103,34 @@ def demo_x0() -> np.ndarray:
 
 
 def demo_rollout(device, steps: int = DEMO_STEPS) -> dict:
-    """`rollout` as examples/sim.py runs it: one scenario, MPCConfig's
-    defaults at horizon 15, 'reference' noise from a seeded generator."""
-    from ft_mpc_torch.sim import env
+    """The demo through its own entry point (`ft_mpc_torch.examples.sim.main`,
+    as `python -m ft_mpc_torch.examples.sim` runs it): the default
+    configuration ((10, 11), 30 s, 'reference' noise seeded 0, MPCConfig's
+    defaults at horizon 15), its duration cut to `steps` control periods
+    where that is fewer; the terminal cache read from a scratch copy."""
+    import tempfile
 
-    sp, sc, params, weights, x_ref, u_ref = demo_setup(device)
-    cfg = sp.MPCConfig(horizon=15)
-    gen = torch.Generator(device=device).manual_seed(0)
-    x0 = torch.as_tensor(demo_x0(), dtype=torch.float32, device=device)
-    zero_counters()
-    with StepRecorder("get_control_rows", device) as rec:
-        hist = env.rollout(params, sc, weights, cfg, env.SimConfig(steps=steps), x0, x_ref,
-                           u_ref, gen)
-    res = history_stats(type(hist)(*(t[None] for t in hist)), rec, sc.u_ub[None])
+    import yaml
+
+    from ft_mpc_torch.examples import sim
+    from ft_mpc_torch.utils.config import DEFAULT_CONFIG_PATH
+
+    raw = yaml.safe_load(DEFAULT_CONFIG_PATH.read_text())
+    if steps != int(raw["traj_duration"] / raw["time_step"]):
+        raw["traj_duration"] = (steps + 0.5) * raw["time_step"]
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        config = tmp / "demo.yaml"
+        config.write_text(yaml.safe_dump(raw))
+        cache = copy_cache(tmp / "cache")
+        zero_counters()
+        with StepRecorder("get_control_rows", device) as rec:
+            out = sim.main(["--config", str(config), "--no-anim", "--device", str(device),
+                            "--csv", str(tmp / "demo.csv"), "--cache-dir", str(cache)])
+    hist = out["history"]
+    res = history_stats(type(hist)(*(t[None] for t in hist)), rec, out["scenario"].u_ub[None])
     res["launches"] = read_counters()
-    res["final_orbit_center_error_m"] = float(
-        torch.linalg.vector_norm(hist.c0[-1, 0:3] - hist.x_ref0[-1, 0:3]))
+    res["final_orbit_center_error_m"] = out["final_error_m"]
     return res
 
 
@@ -1452,6 +1500,382 @@ def drive_port_banks(device, card: str, check) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# section 8: the API, the demo, the accuracy harness and the pipeline
+# ---------------------------------------------------------------------------
+
+
+def copy_cache(dest: Path) -> Path:
+    """A scratch copy of the committed terminal cache (never written here)."""
+    import shutil
+
+    from ft_mpc_torch.api import TERMINAL_CACHE
+
+    shutil.copytree(TERMINAL_CACHE, dest)
+    return dest
+
+
+def grid_empc(plant_host, ff, hull, orbit, tuning):
+    """The eMPC whose grid `compute_terminal_ingredients` samples at `orbit`."""
+    from ft_mpc_torch.controllers.spiral_params import SpiralParameters
+    from ft_mpc_torch.terminal import pipeline as tpl
+
+    D, _, mass, inertia, dt = plant_host
+    sp = SpiralParameters.compute(mass, inertia, D @ ff, orbit["omega_des"], orbit["r_dir"],
+                                  orbit["f_virt_mag"])
+    return tpl.axis_empc(hull, sp.M, np.concatenate([sp.f_virt, np.zeros(3)]), sp.omega_des,
+                         sp.r, inertia, dt, tuning["Q"], tuning["R"], tuning["k_omega"],
+                         time_scaling=float(tuning["time_scaling"]))[2]
+
+
+def committed_masks() -> dict:
+    """The committed float32 entries' feasible grid points (the JAX package's
+    run; `ft_mpc_torch/data/terminal_grid_masks.npz`)."""
+    with np.load(REPO / "ft_mpc_torch" / "data" / "terminal_grid_masks.npz") as z:
+        n = int(z["n_points"])
+        return {k: np.unpackbits(z[k])[:n].astype(bool) for k in z.files if k != "n_points"}
+
+
+def pipeline_phase(device, card: str, check, tmp: Path) -> list:
+    """8a: the offline pipeline on the card (the value-function QPs on the
+    plant's device) for three patterns, each a miss of an empty cache,
+    against the committed entry: orbit, emax, r_empc, uimax and the terminal
+    set exactly; the grid's feasible points against the committed run's,
+    those decided otherwise on the threshold; P9, p9 and c within TOL_PIPE
+    (fitted on the committed run's points where they differ).  Also times
+    `sample_value_function`'s grid on the card (CUDA events; its host
+    numpy included)."""
+    from ft_mpc_torch.api import DEFAULT_TUNING, build_scenario_with_terminal, terminal_cache_path
+    from ft_mpc_torch.geometry.zonotope import attainable_wrench_polytope
+    from ft_mpc_torch.ops.dynamics import BodyParams, host_array
+    from ft_mpc_torch.terminal import pipeline as tpl
+    from ft_mpc_torch.utils.faults import BrokenThruster
+
+    plant = BodyParams.default(0.1, dtype=torch.float32, device=device)
+    host = (host_array(plant.D), float(host_array(plant.max_thrust)),
+            float(host_array(plant.mass)), host_array(plant.inertia),
+            float(host_array(plant.dt)))
+    masks = committed_masks()
+    rows = []
+    for name, pat in PIPELINE_PATTERNS:
+        faults = [BrokenThruster(i, 1.0) for i in pat]
+        cache = tmp / f"pipeline_{name}"
+        t0 = time.perf_counter()
+        build_scenario_with_terminal(plant, faults, DEFAULT_TUNING, cache_dir=cache,
+                                     device=device)
+        sync(device)
+        host_s = time.perf_counter() - t0
+        (entry,) = cache.iterdir()
+        ti = tpl.load_terminal_ingredients(entry)
+        ref = tpl.load_terminal_ingredients(terminal_cache_path(plant, faults, DEFAULT_TUNING))
+        exact = (ti.meta.get("orbit") == ref.meta.get("orbit")
+                 and ti.meta.get("fallback") == ref.meta.get("fallback")
+                 and np.array_equal(ti.emax, ref.emax) and ti.r_empc == ref.r_empc
+                 and ti.meta.get("uimax") == ref.meta.get("uimax")
+                 and np.array_equal(ti.term_set.A, ref.term_set.A)
+                 and np.array_equal(ti.term_set.b, ref.term_set.b))
+        tol = TOL_PIPE * float(np.abs(ref.P9).max())
+        close = lambda P, p, c: (np.allclose(P, ref.P9[:6, :6], rtol=TOL_PIPE, atol=tol)
+                                 and np.allclose(p, ref.p9, rtol=TOL_PIPE, atol=tol)
+                                 and abs(c - ref.c) <= tol)
+        row = {"pattern": name, "host_s": host_s, "exact_parts_equal": exact,
+               "orbit": ti.meta.get("orbit"), "fallback": ti.meta.get("fallback"),
+               "n_grid": ti.meta.get("n_grid"), "n_grid_committed": ref.meta.get("n_grid"),
+               "own_fit_close": close(ti.P9[:6, :6], ti.p9, ti.c)
+               and np.array_equal(ti.P9[6:, 6:], ref.P9[6:, 6:])}
+        if "fallback" in ref.meta:
+            row["own_fit_close"] = bool(np.array_equal(ti.P9, ref.P9)
+                                        and np.array_equal(ti.p9, ref.p9) and ti.c == ref.c)
+        else:
+            ff = np.zeros(16)
+            ff[list(pat)] = host[1]
+            hull = attainable_wrench_polytope(host[0], host[1], (ff > 0).astype(float),
+                                              ff / host[1])
+            empc = grid_empc(host, ff, hull, ref.meta["orbit"], DEFAULT_TUNING)
+            pts, V, r_prim = tpl.value_function_grid(empc, 3, device=device)
+            row["sample_value_function_ms"] = time_ms(
+                lambda: tpl.value_function_grid(empc, 3, device=device), 3, device)
+            mine = r_prim < tpl.FEASIBLE_R_PRIM
+            differ = np.flatnonzero(mine != masks[name])
+            row["grid_points_decided_otherwise"] = pts[differ].round(6).tolist()
+            row["their_r_prim"] = r_prim[differ].tolist()
+            row["differ_on_threshold"] = bool(np.all(
+                np.abs(np.log(r_prim[differ] / tpl.FEASIBLE_R_PRIM)) <= np.log(THRESHOLD_BAND)))
+            P9, p9, c = tpl.quadratic_bound_blocks(
+                *tpl.fit_quadratic_upper_bound(pts[masks[name]], V[masks[name]]),
+                ref.P9[6:, 6:])
+            row["fit_on_committed_points_close"] = close(P9[:6, :6], p9, c)
+            row["grid_n_grid"] = int(mine.sum())
+        log(f"pipeline {name}: " + json.dumps(row))
+        log(f"pipeline {name} (float32 plant, DEFAULT_TUNING, a miss of an empty cache): "
+            f"{host_s:.3f} s on the host, sample_value_function (3131 QPs, one batched "
+            f"admm_solve) {row.get('sample_value_function_ms', float('nan')):.3f} ms; n_grid "
+            f"{row['n_grid']} (committed {row['n_grid_committed']}); card: {card}")
+        check(exact, f"pipeline {name}: orbit, emax, r_empc or the terminal set differ "
+              "from the committed entry")
+        if "fallback" in ref.meta:
+            check(row["own_fit_close"], f"pipeline {name}: fallback ingredients differ")
+        else:
+            check(row["differ_on_threshold"] and row["grid_n_grid"] == row["n_grid"],
+                  f"pipeline {name}: grid points off the threshold decided otherwise: {row}")
+            check(row["fit_on_committed_points_close"]
+                  and (row["own_fit_close"] or len(differ) > 0),
+                  f"pipeline {name}: P9, p9 or c differ from the committed entry: {row}")
+        rows.append(row)
+    return rows
+
+
+def api_phase(device, card: str, check, tmp: Path) -> dict:
+    """8b: `SpiralingMPC` and `SimulationEnvironment` at the demo's tuning,
+    float32 on the card, from the demo's state: API_STEPS[0] steps healthy,
+    then `set_fault` with a single fault the committed cache lacks for this
+    tuning and plant (a miss: orbit search and pipeline, timed), then
+    API_STEPS[1] steps; then `to_history` and `export_csv`."""
+    from ft_mpc_torch.api import (
+        DEFAULT_TUNING,
+        SimulationEnvironment,
+        SpiralingMPC,
+        cached_terminal_path,
+    )
+    from ft_mpc_torch.examples.sim import demo_x0
+    from ft_mpc_torch.ops.dynamics import BodyParams
+    from ft_mpc_torch.utils.config import load_config
+    from ft_mpc_torch.utils.faults import BrokenThruster
+
+    cache = copy_cache(tmp / "api_cache")
+    tuning = {**DEFAULT_TUNING, **load_config(None).tuning}
+    plant = BodyParams.default(0.1, dtype=torch.float32, device=device)
+    fault = next(BrokenThruster(i, 1.0) for i in range(16)
+                 if cached_terminal_path(plant, [BrokenThruster(i, 1.0)], tuning, cache) is None)
+    mpc = SpiralingMPC(plant, [], tuning, cache_dir=cache)
+    mpc.load_trajectory("hover", 30.0)
+    env = SimulationEnvironment(plant, mpc, seed=0)
+    x0 = demo_x0()
+    env.set_initial_state(x0[0:3], x0[3:6], x0[6:10], x0[10:13])
+    ms = []
+
+    def run(n):
+        for _ in range(n):
+            t0 = time.perf_counter()
+            env.step()
+            sync(device)
+            ms.append(1e3 * (time.perf_counter() - t0))
+
+    run(API_STEPS[0])
+    t0 = time.perf_counter()
+    env.set_fault(fault)
+    sync(device)
+    fault_s = time.perf_counter() - t0
+    run(API_STEPS[1])
+    u = np.asarray([h[2] for h in env.history])
+    hist = env.to_history()
+    csv = tmp / "api.csv"
+    env.export_csv(str(csv))
+    table = np.loadtxt(csv, delimiter=";")
+    res = {"fault": fault.index, "set_fault_s": fault_s, "steps": len(ms),
+           "p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99)),
+           "broken_u_after_fault": float(np.abs(u[API_STEPS[0]:, fault.index]).max()),
+           "u_before_fault": float(u[:API_STEPS[0], fault.index].max()),
+           "finite": bool(np.isfinite(u).all() and np.isfinite(env.state).all()
+                          and all(bool(torch.isfinite(t.double()).all()) for t in hist)),
+           "csv_shape": list(table.shape),
+           "final_orbit_center_error_m": float(np.linalg.norm(
+               hist.c0[-1, 0:3].numpy() - hist.x_ref0[-1, 0:3].numpy()))}
+    log("api: " + json.dumps(res))
+    log(f"api (SpiralingMPC + SimulationEnvironment, the demo's tuning, float32): "
+        f"set_fault({fault.index}) on a cache miss {fault_s:.3f} s; p50 {res['p50_ms']:.3f} ms, "
+        f"p99 {res['p99_ms']:.3f} ms per step; thruster {fault.index} after the fault "
+        f"{res['broken_u_after_fault']:.3e} N; card: {card}")
+    check(res["finite"], f"api: non-finite values: {res}")
+    check(res["broken_u_after_fault"] <= 1e-6,
+          f"api: broken thruster {fault.index} commanded {res['broken_u_after_fault']} N")
+    check(res["csv_shape"] == [sum(API_STEPS), 67], f"api: CSV shape {res['csv_shape']}")
+    return res
+
+
+def demo_batch_phase(device, card: str, check, tmp: Path) -> dict:
+    """8c: the demo's `main` with --batch DEMO_BATCH on a copy of the default
+    configuration whose duration is cut to DEMO_DURATION; patterns the
+    committed cache lacks go through the pipeline into a scratch copy."""
+    import yaml
+
+    from ft_mpc_torch.examples import sim
+    from ft_mpc_torch.utils.config import DEFAULT_CONFIG_PATH
+
+    raw = yaml.safe_load(DEFAULT_CONFIG_PATH.read_text())
+    full = raw["traj_duration"]
+    raw["traj_duration"] = DEMO_DURATION
+    config = tmp / "demo_batch.yaml"
+    config.write_text(yaml.safe_dump(raw))
+    cache = copy_cache(tmp / "demo_cache")
+    zero_counters()
+    res = sim.main(["--config", str(config), "--batch", str(DEMO_BATCH), "--no-anim",
+                    "--csv", str(tmp / "demo_batch.csv"), "--device", str(device),
+                    "--cache-dir", str(cache)])
+    out = {k: res[k] for k in ("final_error_m", "elapsed_s", "build_s", "misses",
+                               "scenarios", "steps")}
+    out["launches"] = read_counters()
+    out["finite"] = bool(torch.isfinite(res["history"].u_phys).all())
+    log("demo --batch: " + json.dumps(out))
+    log(f"demo --batch {DEMO_BATCH} (duration cut from {full} s to {DEMO_DURATION} s): "
+        f"{out['misses']} cache misses through the pipeline, scenarios built in "
+        f"{out['build_s']:.2f} s; {out['steps']} steps in {out['elapsed_s']:.2f} s; "
+        f"card: {card}")
+    check(out["finite"] and out["scenarios"] == DEMO_BATCH,
+          f"demo --batch: {out}")
+    check(all(v == 0 for v in out["launches"].values()),
+          f"demo --batch: the per-scenario path launched a kernel: {out['launches']}")
+    return out
+
+
+def accuracy_phase(device, card: str, check) -> dict:
+    """8d: the accuracy harness for ACC_STEPS steps on the card, with the
+    gates that step count reaches (ft_mpc_torch.benchmarks.accuracy)."""
+    from ft_mpc_torch.benchmarks import accuracy
+
+    zero_counters()
+    res = accuracy.main(steps=ACC_STEPS, device=device)
+    launches = read_counters()
+    keep = ("same_state_max_dev_N", "lanes_same_state_max_dev_N", "closed_loop_max_dev_N",
+            "chaos_floor_N", "golden_step_ms", "fast_step_ms", "lanes_step_ms",
+            "failed_gates")
+    log(f"accuracy ({ACC_STEPS} steps of the harness's {accuracy.STEPS}): "
+        + json.dumps({k: res[k] for k in keep}) + f"; launches {launches}; card: {card}")
+    check(not res["failed_gates"], f"accuracy gates: {res['failed_gates']}")
+    check(all(launches[k] > 0 for k in CONDENSED_KERNELS),
+          f"accuracy: the lanes leg launched no kernel of {CONDENSED_KERNELS}: {launches}")
+    return res
+
+
+def lanes_b1_phase(device, card: str, check) -> list:
+    """8e: the whole lanes step at B=1 (the accuracy harness's lanes leg:
+    cleanup K=1 over 4 rounds) from the demo's state, LANES_B1_STEPS chained
+    steps on the card with the launch counters zeroed before and read after;
+    each step also taken by the CPU port from the card's state and warm
+    start (wrench within TOL_STEP_U, u_phys on a same-branch row, a flip only
+    on a threshold); then kernels 1-3 held against their plain versions on
+    the last step's own inputs."""
+    from torch.utils._pytree import tree_map
+
+    from ft_mpc_torch.benchmarks import accuracy
+    from ft_mpc_torch.examples.sim import demo_x0
+    from ft_mpc_torch.ops.dynamics import robot_step
+
+    _, _, lanes = accuracy.configs()
+    ctxs = []
+    for dev in (device, torch.device("cpu")):
+        _, sc, *_ = accuracy.setup(dev, torch.float32)
+        c = Ctx(dev, torch.float32, 1, x0=demo_x0()[None], bank=tree_map(lambda x: x[None], sc))
+        c.cfg = lanes
+        ctxs.append(c)
+    g, c = ctxs
+    zero_counters()
+    warm = g.init()
+    res = {"wrench_err": [], "u_err": [], "branch_flips": 0, "flips_off_threshold": 0,
+           "finite": True}
+    for _ in range(LANES_B1_STEPS):
+        out = g.step(warm)
+        c.x0 = g.x0.cpu()
+        ref = c.step(type(warm)(*(None if t is None else t.cpu() for t in warm)))
+        same = bool((out.alloc.was_clipped.cpu() == ref.alloc.was_clipped).all()
+                    and (out.alloc.used_fallback.cpu() == ref.alloc.used_fallback).all())
+        res["wrench_err"].append(float((out.wrench.cpu() - ref.wrench).abs().max()))
+        res["u_err"].append(float((out.u_phys.cpu() - ref.u_phys).abs().max()) if same else 0.0)
+        res["branch_flips"] += int(not same)
+        res["flips_off_threshold"] += int(not bool(flip_on_threshold(g, out, ref).all()))
+        res["finite"] &= bool(torch.isfinite(out.u_phys).all() and torch.isfinite(out.warm.X).all())
+        last_x0, last_warm, last_out = g.x0, warm, out
+        g.x0 = robot_step(g.params, g.bank.fault, g.x0, out.u_phys)
+        warm = g.sp.shift_warmstart(out.warm, g.sp.robot_to_center(g.bank.r, g.x0))
+    sync(device)
+    res["launches"] = read_counters()
+    log("lanes step at B=1, card vs CPU port: " + json.dumps(res))
+    want = {"condense_lanes": 6 * LANES_B1_STEPS + 1, "admm_lanes": 10 * LANES_B1_STEPS,
+            "allocate_thrusters_lanes": LANES_B1_STEPS}
+    check({k: res["launches"][k] for k in want} == want,
+          f"lanes step at B=1: launches {res['launches']}, expected {want} "
+          "(2 + 4 cleanup rounds, 2 + 4 x 2, 1 a step; the warm start condenses once)")
+    check(res["finite"] and max(res["wrench_err"]) <= TOL_STEP_U
+          and max(res["u_err"]) <= TOL_STEP_U and res["flips_off_threshold"] == 0,
+          f"lanes step at B=1: the card's step differs from the CPU port's: {res}")
+
+    g.x0 = last_x0
+    rows = [check_condense(g, last_warm),
+            check_admm(g, admm_inputs(g, last_warm, g.weights), lanes.admm.iters,
+                       "lanes B=1", reps=5),
+            check_admm(g, admm_inputs(g, last_warm, g.weights), lanes.cleanup_iters,
+                       "lanes B=1 cleanup", reps=3),
+            time_alloc_main(g, last_out, "lanes step")]
+    for r in rows:
+        log("kernel (lanes step at B=1): " + json.dumps(with_share(r)))
+        if r["name"] == "allocate_thrusters_lanes":
+            continue  # held below, by the C1 rule
+        ok = (r["max_abs_err"] <= r["tol"]) if "tol" in r else (r["max_rel_err"] <= r["tol_rel"])
+        check(ok and np.isfinite(r["max_abs_err"]),
+              f"{r['name']} ({r['shape']}) disagrees with its plain version")
+    am = check_alloc_main(g, last_out)
+    log("alloc on the lanes step's wrench at B=1: " + json.dumps(am))
+    check(am["u_err"] <= TOL_ALLOC_MAIN and am["hull_flips_off_threshold"] == 0
+          and all(e > FALLBACK_EQ_ERR / 2 for e in am["fallback_flips_kept_eq_err"]),
+          f"allocation kernel disagrees with its plain version at B=1: {am}")
+    return rows
+
+
+def kkt_phase(device, card: str, check) -> dict:
+    """8f: `kkt_residuals` on the card (float64) at a converged per-scenario
+    solution: tests/test_certify.py:24-61's problem and gates."""
+    from ft_mpc_torch.api import DEFAULT_TUNING, build_scenario_with_terminal
+    from ft_mpc_torch.controllers import spiraling as sp
+    from ft_mpc_torch.controllers.certify import kkt_residuals
+    from ft_mpc_torch.examples.sim import demo_x0
+    from ft_mpc_torch.ops.dynamics import BodyParams
+    from ft_mpc_torch.solvers.mpc_qp import StructuredADMMConfig
+    from ft_mpc_torch.utils.faults import BrokenThruster
+    from ft_mpc_torch.utils.trajectory import generate_trajectory, prepare_center_trajectory
+
+    f64 = torch.float64
+    params = BodyParams.default(0.1, dtype=f64, device=device)
+    sc = build_scenario_with_terminal(params, [BrokenThruster(10, 1.0), BrokenThruster(11, 1.0)],
+                                      DEFAULT_TUNING, terminal_mode="quadratic", device=device,
+                                      dtype=f64)
+    w = sp.MPCWeights.from_diagonals(Q_DIAG, R_DIAG, dtype=f64, device=device)
+    traj = generate_trajectory("hover", 0.1, 30)
+    xr, ur = prepare_center_trajectory(traj, sc.omega_des.cpu().numpy(), 16.8, 0.1, 16)
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=f64, device=device)
+    xr, ur = t(xr[:16]), t(ur[:16])
+    c0 = sp.robot_to_center(sc.r, t(demo_x0()))
+    cfg = sp.MPCConfig(horizon=15, sqp_iters=20,
+                       admm=StructuredADMMConfig(iters=100, phases=4, rho=50.0))
+    point, _ = sp.sqp_solve(params, sc, w, cfg, c0, xr, ur,
+                            sp.init_warmstart(params, sc, cfg, c0))
+    t0 = time.perf_counter()
+    res = kkt_residuals(params, sc, w, cfg, c0, xr, ur, point)
+    sync(device)
+    out = {f: float(getattr(res, f)) for f in res._fields}
+    out["ms"] = 1e3 * (time.perf_counter() - t0)
+    log(f"kkt_residuals on the card (float64): {json.dumps(out)}; card: {card}")
+    check(out["defect"] < 1e-6 and out["hull_violation"] < 1e-5
+          and out["term_violation"] < 1e-5 and out["stationarity"] < 0.5,
+          f"kkt_residuals: {out}")
+    return out
+
+
+def drive_slice_api(device, card: str, check) -> list:
+    """Section 8; returns kernel rows of the lanes step at B=1 (printed, not
+    in the kernels line)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        pipeline_phase(device, card, check, tmp)
+        api_phase(device, card, check, tmp)
+        demo_batch_phase(device, card, check, tmp)
+    rows = lanes_b1_phase(device, card, check)
+    kkt_phase(device, card, check)
+    accuracy_phase(device, card, check)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=Path, metavar="FILE",
@@ -1620,6 +2044,8 @@ def main(argv=None) -> int:
     drive_closed_loop(device, card, check, profiles if args.profile else None)
     torch.cuda.empty_cache()
     rows.append(drive_port_banks(device, card, check))
+    torch.cuda.empty_cache()
+    drive_slice_api(device, card, check)
     if args.profile:
         args.profile.parent.mkdir(parents=True, exist_ok=True)
         args.profile.write_text("\n".join(profiles))

@@ -702,9 +702,13 @@ def _sqp_scan(params, bank, weights, cfg, c0, x_ref, u_ref, warm: WarmStart,
     if refine:
         # The JAX package gates each refine iteration with lax.cond, a select
         # under vmap: every row computes it, the rows that have converged keep
-        # their state.  Same values for one row or a bank, no host sync.
+        # their state.  Once no row needs it, every later iteration would keep
+        # every row as it is, so the loop stops there (one host read an
+        # iteration; the values are those of the full loop).
         for _ in range(cfg.refine_iters):
             need = torch.maximum(info[0], info[3]) > cfg.refine_tol
+            if not bool(need.any()):
+                break
             new, new_info = step(cfg.refine_admm or cfg.admm, carry)
             keep = lambda a, b: torch.where(need.view(-1, *(1,) * (a.dim() - 1)), b, a)
             carry = _Carry(*map(keep, carry, new))

@@ -154,6 +154,10 @@ class Polytope:
                 keep[i] = False  # redundant
         return Polytope(A[keep], b[keep])
 
+    def minkowski_subtract_ball(self, r: float) -> "Polytope":
+        """P minus the ball {||x|| <= r}: each facet moves in by r ||A_i||."""
+        return Polytope(self.A, self.b - np.linalg.norm(self.A, axis=1) * r)
+
     def as_padded(self, max_facets: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Fixed-shape (A, b, mask) for device-side batching.
 

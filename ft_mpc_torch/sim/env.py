@@ -5,7 +5,8 @@ state noise -> quaternion renormalize -> warm-start shift.  The JAX package
 runs the loop as one `lax.scan`; here it is a Python loop over steps whose
 every operation is batched over the B rollouts at once and stays on the
 device: the loop reads nothing back to the host (the batched controller's
-`newton_kinv` keeps its one rescue test).
+`newton_kinv` keeps its one rescue test, and a configuration with gated
+refinement reads whether any row still needs it).
 
   * `rollout` / `rollout_with_fault_schedule`: one scenario, the per-scenario
     controller (`get_control`), histories (T, ...);

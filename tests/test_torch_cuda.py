@@ -23,7 +23,7 @@ import torch
 
 from ft_mpc_torch.controllers import spiraling as sp
 from ft_mpc_torch.geometry.scenario import load_bank_snapshot, take_rows, tile_bank
-from ft_mpc_torch.ops.dynamics import BodyParams
+from ft_mpc_torch.ops.dynamics import BodyParams, robot_step
 from ft_mpc_torch.solvers import lanes_alloc as la
 from ft_mpc_torch.solvers import lanes_condense as lc
 from ft_mpc_torch.solvers import lanes_qp as lq
@@ -404,3 +404,129 @@ def test_rollout_refuses_noise_without_generator(dev):
     hist = env.rollout(*args, torch.Generator(device=dev).manual_seed(0))
     assert hist.state.device.type == "cuda" and torch.isfinite(hist.state).all()
     assert hist.u_phys.shape == (2, 16)
+
+
+HULL_MARGIN = 1e-7  # the allocation's hull test: hull_A w_total <= hull_b + 1e-7
+FALLBACK_EQ_ERR = 1e-2  # the fallback replaces u only above this equality error
+
+
+def _flip_on_threshold(bank, out_g, out_c) -> bool:
+    """Whether the allocation branches that differ between a card step and
+    the CPU step (one row) sit on a threshold: the hull test within float32
+    rounding of its margin on either side's wrench, or decided otherwise by
+    the exact test; the fallback where the side that kept its u has an
+    equality error above half the fallback threshold."""
+    hA = (bank.hull_A * bank.hull_mask[..., None]).double().cpu()
+    hb = torch.where(bank.hull_mask > 0.5, bank.hull_b, 1e8).double().cpu()
+    ff = bank.faulty_force_gen.double().cpu()
+    near, side = False, []
+    for w in (out_g.wrench, out_c.wrench):
+        wt = w.double().cpu() + ff
+        slack = torch.einsum("bfi,bi->bf", hA, wt) - hb - HULL_MARGIN
+        band = 8 * 2.0 ** -24 * (torch.einsum("bfi,bi->bf", hA.abs(), wt.abs()) + hb.abs())
+        near |= bool((slack.abs() <= band).any())
+        side.append(bool((slack > 0).any()))
+    if bool(out_g.alloc.was_clipped.cpu().ne(out_c.alloc.was_clipped).any()):
+        return near or side[0] != side[1]
+    kept = out_c if bool(out_g.alloc.used_fallback.any()) else out_g
+    return float(kept.alloc.r_prim.max()) > FALLBACK_EQ_ERR / 2
+
+
+def test_lanes_step_b1_card_matches_cpu(dev):
+    """The accuracy harness's lanes leg on the card: `get_control_batch` at
+    B=1 with the cleanup at K=1 over 4 rounds, the (10, 11) scenario, three
+    chained steps from the reference demo's state; each step also taken by
+    the CPU port from the card's state and warm start.  The wrench within
+    2e-2, u_phys within 2e-2 where the allocation took the same branches, a
+    flip only on a threshold."""
+    from torch.utils._pytree import tree_map
+
+    from ft_mpc_torch.benchmarks import accuracy as acc
+
+    _, _, lanes = acc.configs()
+    assert (lanes.cleanup_k, lanes.cleanup_rounds) == (1, 4)
+    sides = []
+    for device in (dev, torch.device("cpu")):
+        params, sc, w, xr, ur, x0 = acc.setup(device, F32)
+        sides.append((params, tree_map(lambda x: x[None], sc), w, xr, ur, x0))
+    params, bank, w, xr, ur, x0 = sides[0]
+    c_params, c_bank, c_w = sides[1][:3]
+    warm = sp.init_warmstart_batch(params, bank, w, lanes, sp.robot_to_center(bank.r, x0[None]),
+                                   xr[:16], ur[:16])
+    x = x0[None]
+    for step in range(3):
+        n0 = (lc.condense_lanes.launches, lq.admm_lanes.launches,
+              la.allocate_thrusters_lanes.launches)
+        out = sp.get_control_batch(params, bank, w, lanes, x, xr[step : step + 16],
+                                   ur[step : step + 16], warm)
+        torch.cuda.synchronize()
+        n1 = (lc.condense_lanes.launches, lq.admm_lanes.launches,
+              la.allocate_thrusters_lanes.launches)
+        # condensing 2 + 4 cleanup rounds, ADMM 2 + 4 x 2 cleanup phases, allocation 1
+        assert tuple(b - a for a, b in zip(n0, n1)) == (6, 10, 1)
+        warm_c = type(warm)(*(None if t is None else t.cpu() for t in warm))
+        ref = sp.get_control_batch(c_params, c_bank, c_w, lanes, x.cpu(),
+                                   xr[step : step + 16].cpu(), ur[step : step + 16].cpu(),
+                                   warm_c)
+        assert torch.isfinite(out.u_phys).all() and torch.isfinite(out.warm.X).all()
+        np.testing.assert_allclose(np_(out.wrench), np_(ref.wrench), atol=2e-2)
+        same = bool((out.alloc.was_clipped.cpu() == ref.alloc.was_clipped).all()
+                    and (out.alloc.used_fallback.cpu() == ref.alloc.used_fallback).all())
+        if same:
+            np.testing.assert_allclose(np_(out.u_phys), np_(ref.u_phys), atol=2e-2)
+        else:
+            assert _flip_on_threshold(c_bank, out, ref), step
+        assert float(out.u_phys[0, 10:12].abs().max()) <= 1e-6
+        x = robot_step(params, bank.fault, x, out.u_phys)  # no noise
+        warm = sp.shift_warmstart(out.warm, sp.robot_to_center(bank.r, x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, F32], ids=["float64", "float32"])
+def test_value_function_card_matches_cpu_float64(dev, dtype):
+    """The terminal pipeline's grid of 3131 QPs (healthy, DEFAULT_TUNING, the
+    committed entry's eMPC) as one batched `admm_solve` on the card against
+    the port's float64 CPU run.  Float64 on the card: V within 1e-8, the
+    feasible points equal.  Float32: V within 1e-3 of its scale where both
+    are feasible; points decided otherwise have an r_prim within a factor 20
+    of the 1e-4 threshold."""
+    from ft_mpc_torch.terminal import pipeline as tpl
+
+    # the healthy float32 entry's eMPC: r_in, dt and uimax as the pipeline computes them
+    empc = tpl.empc_ingredients(1.0, 1.0, 28.223997436523497, 0.10000000149011612, 5.0,
+                                0.09419650192430588)
+    pts, V, rp = tpl.value_function_grid(empc, 3, device=dev, dtype=dtype)
+    pts_c, V_c, rp_c = tpl.value_function_grid(empc, 3, device="cpu", dtype=torch.float64)
+    np.testing.assert_array_equal(pts, pts_c)
+    feas, feas_c = rp < tpl.FEASIBLE_R_PRIM, rp_c < tpl.FEASIBLE_R_PRIM
+    assert feas_c.sum() > 100
+    if dtype == torch.float64:
+        np.testing.assert_array_equal(feas, feas_c)
+        np.testing.assert_allclose(V, V_c, rtol=0, atol=1e-8)
+    else:
+        both = feas & feas_c
+        np.testing.assert_allclose(V[both], V_c[both], rtol=0,
+                                   atol=1e-3 * np.abs(V_c[both]).max())
+        differ = feas != feas_c
+        band = np.abs(np.log(np.stack([rp, rp_c])[:, differ] / tpl.FEASIBLE_R_PRIM))
+        assert np.all(band.min(axis=0) <= np.log(20.0))
+
+
+def test_spiraling_mpc_card_matches_cpu(dev):
+    """`SpiralingMPC.get_control` (the per-scenario path, no kernel) for one
+    step of the healthy float32 plant, card against CPU, at the float32
+    end-to-end class."""
+    from ft_mpc_torch.api import SpiralingMPC
+
+    x0 = np.zeros(13)
+    x0[0:3] = [0.2, -0.1, 0.15]
+    x0[6:10] = [0.0, 0.0, 0.0, 1.0]
+    x0[10:13] = [0.0, 0.05, 0.5]
+    us = []
+    for device in (dev, torch.device("cpu")):
+        mpc = SpiralingMPC(BodyParams.default(0.1, F32, device))
+        mpc.load_trajectory("hover", 3.0)
+        n0 = lq.admm_lanes.launches
+        us.append(mpc.get_control(x0, 0.0))
+        assert lq.admm_lanes.launches == n0
+    assert np.isfinite(us[0]).all() and us[0].shape == (16,)
+    np.testing.assert_allclose(us[0], us[1], rtol=0, atol=2e-2)
