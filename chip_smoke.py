@@ -86,6 +86,30 @@
    - `kkt_residuals` in float64 at a converged per-scenario solution;
    - the accuracy harness (`ft_mpc_torch.benchmarks.accuracy`) for
      ACC_STEPS steps with the gates those steps reach.
+9. Drives scenario sharding (`ft_mpc_torch.parallel`) and the planar model
+   family (`ft_mpc_torch.models.planar`), each run with the launch counters
+   zeroed just before and read just after:
+   - 9a: `make_scenario_mesh()` (every CUDA device: one here), the condensed
+     configuration of section 2 at B=2048 through `sharded_init_warmstart`
+     and `sharded_control_step_lanes`, 3 + 10 steps: equal to a direct
+     `get_control_batch` on the same inputs, launches 3 / 5 / 1 a step, the
+     metrics the reductions of the outputs;
+   - 9b: the same on two shards of the one card (`["cuda:0", "cuda:0"]`):
+     each shard equal to `get_control_batch` on its own rows within 1e-6 N,
+     2 x (3 / 5 / 1) launches a step; the rows whose cleanup differs from
+     the unsharded step's (printed); `sharded_rollout_lanes` for 10 steps,
+     one seeded generator per shard, with section 6's plant and fault gates;
+   - 9c: `python -m ft_mpc_torch.parallel.launch` in subprocesses: a NCCL
+     world of one with two shards, two processes sharing the card over gloo
+     (equal to the first at 1e-5 N), a NCCL world of one with one shard;
+   - 9d: `dryrun_multichip(2, device="cuda")`, its three legs gated (the
+     only measured path with the ADMM kernel's state-box and rate rows);
+   - 9e: the planar bank (healthy, (6) and (2) stuck on, pipeline misses of
+     an empty cache) tiled to B=2048 from planar states, 3 + 10 condensed
+     steps: thrusters 8-15 at most 1e-6 N, max_term_gap <= 0.4, launches
+     3 / 5 / 1, kernels 1-3 held and timed on its own inputs, one step card
+     vs CPU on 32 rows; then `tests/test_planar.py`'s hover (per-scenario,
+     30 steps), its drift printed and its absent thrusters gated at 1e-6 N.
 
 Prints the card's name and power limit, one JSON line with every kernel's
 numbers, and as its last line {"ok": true, "device": {...}}.  Exits with a
@@ -204,6 +228,15 @@ ACC_STEPS = 3  # the accuracy leg, cut from the harness's 120 to fit (about 30 s
 #   reaches none of the harness's gates (the first from step 20), so it holds
 #   finiteness and the lanes leg's kernel launches; the 120 steps run separately
 LANES_B1_STEPS = 3
+# section 9: scenario sharding and the planar model family
+SHARD_TOL = 1e-6  # N: a shard against get_control_batch on its own rows (same card)
+SHARD_ROLLOUT = 10  # steps of sharded_rollout_lanes
+LAUNCH_REPS = 10  # --reps of each launch run
+LAUNCH_TIMEOUT = 300  # s, each launch subprocess
+TOL_PROCS = 1e-5  # 2 processes against 1: tests/test_distributed.py:164-171
+PLANAR_PATTERNS = ((), (6,), (2,))
+PLANAR_SMALL = 32  # rows of the planar card-vs-CPU step
+PLANAR_LOOP = 30  # steps of the planar hover (per-scenario path)
 CONDENSED_KERNELS = ("condense_lanes", "admm_lanes", "allocate_thrusters_lanes")
 STAGEWISE_KERNELS = ("riccati_bwd_lanes", "riccati_fwd_lanes",
                      "allocate_thrusters_lanes")
@@ -229,10 +262,11 @@ class Ctx:
     """Everything the main path needs, on one device and dtype."""
 
     def __init__(self, device, dtype, B: int, x0=None, stagewise_horizon: int = 0,
-                 bank=None, params=None, horizon: int = 0):
+                 bank=None, params=None, horizon: int = 0, mass: float = 16.8):
         """`bank` (tiled over its rows to B; default the 32-pattern snapshot)
         and `params` (default BodyParams.default) give another bank and
-        plant; `horizon` another horizon of the condensed configuration."""
+        plant, `mass` the nominal mass of its reference inputs; `horizon`
+        another horizon of the condensed configuration."""
         from ft_mpc_torch.controllers import spiraling as sp
         from ft_mpc_torch.geometry.scenario import load_bank_snapshot, take_rows, tile_bank
         from ft_mpc_torch.ops.dynamics import BodyParams
@@ -276,7 +310,7 @@ class Ctx:
             traj = generate_trajectory("hover", 0.1, max(5, (Nt + 2) * 0.1))
             default_x0 = bench_x0
         x_ref, u_ref = prepare_center_trajectory(
-            traj, np.array([0.0, 0.0, 0.6]), 16.8, 0.1, Nt + 1
+            traj, np.array([0.0, 0.0, 0.6]), mass, 0.1, Nt + 1
         )
         t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
         self.x_ref, self.u_ref = t(x_ref[: Nt + 1]), t(u_ref[: Nt + 1])
@@ -1876,6 +1910,428 @@ def drive_slice_api(device, card: str, check) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# section 9: scenario sharding (ft_mpc_torch/parallel) and the planar family
+# ---------------------------------------------------------------------------
+
+
+def sharded_steps(ctx: Ctx, mesh, warmup: int, steps: int):
+    """`sharded_init_warmstart` + warmup + steps chained
+    `sharded_control_step_lanes` on ctx's bank, states and configuration,
+    with the launch counters zeroed just before and read just after.
+    Returns (numbers, the last step's incoming warm start, output, metrics)."""
+    from ft_mpc_torch.parallel import mesh as pm
+
+    sc = pm.shard_scenario_batch(mesh, ctx.bank)
+    x0 = pm.shard_scenario_batch(mesh, ctx.x0)
+    zero_counters()
+    c0 = pm.map_shards(mesh, lambda b, x: ctx.sp.robot_to_center(b.r, x), (sc, x0))
+    warm = pm.sharded_init_warmstart(mesh, ctx.params, sc, ctx.weights, ctx.cfg, c0,
+                                     ctx.x_ref, ctx.u_ref)
+    samples = []
+    for i in range(warmup + steps):
+        t0 = time.perf_counter()
+        out, metrics = pm.sharded_control_step_lanes(mesh, ctx.params, sc, ctx.weights,
+                                                     ctx.cfg, x0, ctx.x_ref, ctx.u_ref, warm)
+        sync(ctx.device)
+        if i >= warmup:
+            samples.append(1e3 * (time.perf_counter() - t0))
+        prev, warm = warm, out._replace(shards=tuple(o.warm for o in out.shards))
+    launches = read_counters()
+    n = warmup + steps
+    want = {k: m * n * mesh.size + (k == "condense_lanes") * mesh.size
+            for k, m in LOOP_LAUNCHES.items()}
+    want.update(riccati_bwd_lanes=0, riccati_fwd_lanes=0)
+    res = {"shards": mesh.size, "B": len(ctx.bank.r), "steps": n,
+           "p50_ms": float(np.percentile(samples, 50)),
+           "p99_ms": float(np.percentile(samples, 99)),
+           "launches": launches, "launches_expected": want,
+           "mean_cost": float(metrics.mean_cost), "max_r_prim": float(metrics.max_r_prim),
+           "max_term_gap": float(metrics.max_term_gap)}
+    res["solves_per_s"] = res["B"] * 1e3 / res["p50_ms"]
+    return res, prev, out, metrics
+
+
+class CleanupRows:
+    """Records the rows the worst-K cleanup takes (`spiraling.take_rows`,
+    which the condensed step calls only there) for the length of a block."""
+
+    def __enter__(self):
+        from ft_mpc_torch.controllers import spiraling as sp
+
+        self.sp, self.real, self.rows = sp, sp.take_rows, []
+
+        def wrapped(bank, idx):
+            self.rows.append(idx.detach().cpu())
+            return self.real(bank, idx)
+
+        sp.take_rows = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.sp.take_rows = self.real
+
+
+def shards_vs_own(ctx: Ctx, prev, out) -> dict:
+    """Each shard of the last sharded step against `get_control_batch` on
+    that shard's own rows from the same warm start (the same calls on the
+    same card), the rows its cleanup took (global row numbers) and its
+    whole-batch exact refactors (`newton_kinv` rescues)."""
+    from ft_mpc_torch.solvers.lanes_qp import newton_kinv
+
+    per = len(ctx.bank.r) // len(out.shards)
+    err = {"u_phys": 0.0, "wrench": 0.0, "warm": 0.0}
+    cleaned, rescues = [], []
+    for i, shard in enumerate(out.shards):
+        rows = torch.arange(i * per, (i + 1) * per, device=ctx.device)
+        bank = ctx.sp.take_rows(ctx.bank, rows)
+        n0 = newton_kinv.rescues
+        with CleanupRows() as rec:
+            own = ctx.sp.get_control_batch(ctx.params, bank, ctx.weights, ctx.cfg,
+                                           ctx.x0[rows], ctx.x_ref, ctx.u_ref, prev.shards[i])
+        rescues.append(newton_kinv.rescues - n0)
+        cleaned += [int(r) + i * per for idx in rec.rows for r in idx]
+        for name in ("u_phys", "wrench"):
+            d = float((getattr(shard, name) - getattr(own, name)).abs().max())
+            err[name] = max(err[name], d)
+        for a, b in zip(shard.warm, own.warm):
+            if a is not None:
+                err["warm"] = max(err["warm"], float((a - b).abs().max()))
+    return {"max_abs_diff": err, "cleanup_rows": sorted(cleaned), "rescues": rescues}
+
+
+def metrics_of(out) -> dict:
+    """The JAX package's reductions of a sharded output: the mean of the
+    shards' means, the maxima of r_prim and term_gap."""
+    infos = [o.info for o in out.shards]
+    return {"mean_cost": float(torch.stack([i.cost.mean() for i in infos]).mean()),
+            "max_r_prim": max(float(i.r_prim.max()) for i in infos),
+            "max_term_gap": max(float(i.term_gap.max()) for i in infos)}
+
+
+def check_sharded(label: str, res: dict, out, metrics, check) -> None:
+    got = {"mean_cost": float(metrics.mean_cost), "max_r_prim": float(metrics.max_r_prim),
+           "max_term_gap": float(metrics.max_term_gap)}
+    want = metrics_of(out)
+    log(f"{label}: StepMetrics {got}, reductions of the outputs {want}")
+    check(abs(got["mean_cost"] - want["mean_cost"]) <= 1e-6 * abs(want["mean_cost"])
+          and got["max_r_prim"] == want["max_r_prim"]
+          and got["max_term_gap"] == want["max_term_gap"],
+          f"{label}: StepMetrics {got} are not the reductions of the outputs {want}")
+    check(res["launches"] == res["launches_expected"],
+          f"{label}: launches {res['launches']}, expected {res['launches_expected']} "
+          "(3 / 5 / 1 a step per shard and each shard's warm start condensing)")
+    u = metrics.u_phys.gather()
+    check(bool(torch.isfinite(u).all()) and u.shape == (res["B"], 16),
+          f"{label}: u_phys {tuple(u.shape)} not finite")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_launches(cmds: list, timeout: float) -> list:
+    """Start every command (from the checkout's root), wait for each; kill
+    what is left on a timeout.  Returns (rc, stdout, stderr) per command."""
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(REPO), env.get("PYTHONPATH")]))
+    procs = [subprocess.Popen(c, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for c in cmds]
+    res = []
+    try:
+        for p in procs:
+            try:
+                out, err = p.communicate(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, err = p.communicate()
+                err += f"\n(killed after {timeout} s)"
+            res.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return res
+
+
+def launch_phase(check, tmp: Path) -> dict:
+    """9c: `python -m ft_mpc_torch.parallel.launch` in subprocesses (the
+    kernels are built already, in build/): (i) a NCCL world of one with two
+    shards of BATCH / 2 rows on the card, (ii) two processes on the one card
+    over gloo, BATCH / 2 rows each, (iii) a NCCL world of one with one shard
+    of BATCH; each --reps LAUNCH_REPS --dump.  (ii)'s gathered outputs equal
+    (i)'s."""
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    log(f"launch: compute mode {mode!r} (two processes on one card need 'Default')")
+    base = [sys.executable, "-m", "ft_mpc_torch.parallel.launch", "--reps",
+            str(LAUNCH_REPS)]
+    half = BATCH // 2
+    world = lambda port, n, i: ["--coordinator", f"127.0.0.1:{port}", "--num-processes",
+                                str(n), "--process-id", str(i)]
+    runs = {
+        "i": [base + ["--backend", "nccl", "--per-device", str(half), "--devices",
+                      "cuda:0,cuda:0", "--dump", str(tmp / "i.npz"),
+                      *world(free_port(), 1, 0)]],
+        "ii": (lambda port: [base + ["--backend", "gloo", "--per-device", str(half),
+                                     "--devices", "cuda:0", "--dump", str(tmp / "ii.npz"),
+                                     *world(port, 2, i)] for i in (0, 1)])(free_port()),
+        "iii": [base + ["--backend", "nccl", "--per-device", str(BATCH), "--dump",
+                        str(tmp / "iii.npz"), *world(free_port(), 1, 0)]],
+    }
+    lines = {}
+    for name, cmds in runs.items():
+        t0 = time.perf_counter()
+        results = run_launches(cmds, LAUNCH_TIMEOUT)
+        wall = time.perf_counter() - t0
+        bad = [(rc, err[-3000:]) for rc, _, err in results if rc != 0]
+        check(not bad, f"launch ({name}) failed (compute mode {mode!r}): {bad}")
+        js = [ln for ln in results[0][1].splitlines() if ln.startswith("{")]
+        if not bad and js:
+            lines[name] = json.loads(js[-1])
+            log(f"launch ({name}), {len(cmds)} process(es), {wall:.1f} s wall: {js[-1]}")
+    want = {"i": (1, 2, BATCH), "ii": (2, 2, BATCH), "iii": (1, 1, BATCH)}
+    for name, line in lines.items():
+        got = (line["processes"], line["devices"], line["global_batch"])
+        check(got == want[name] and line["max_term_gap"] <= GAP_GATE,
+              f"launch ({name}): (processes, devices, global_batch) {got}, expected "
+              f"{want[name]}; max_term_gap {line['max_term_gap']}")
+    if "i" in lines and "ii" in lines:
+        a, b = np.load(tmp / "i.npz"), np.load(tmp / "ii.npz")
+        du = float(np.abs(a["u_phys"] - b["u_phys"]).max())
+        dw = float(np.abs(a["wrench"] - b["wrench"]).max())
+        rel = {k: abs(float(a[k]) - float(b[k])) / max(abs(float(a[k])), 1e-30)
+               for k in ("mean_cost", "max_r_prim", "max_term_gap")}
+        log(f"launch: 2 processes (gloo) against 1 (NCCL) on the same 2 shards: max |du| "
+            f"{du:.3e}, |dwrench| {dw:.3e} N (tol {TOL_PROCS}); metrics rel {rel}")
+        check(a["u_phys"].shape == b["u_phys"].shape == (BATCH, 16)
+              and du <= TOL_PROCS and dw <= TOL_PROCS
+              and all(v <= TOL_PROCS for v in rel.values()),
+              f"launch: 2 processes differ from 1: {du}, {dw}, {rel}")
+    return lines
+
+
+def planar_x0(B: int) -> np.ndarray:
+    """Seeded planar states: positions in +-1 m and velocities in +-0.3 m/s
+    in the plane, a random yaw, yaw rates in +-0.3 rad/s (bench.py's ranges
+    with the out-of-plane components at 0)."""
+    rng = np.random.default_rng(0)
+    x0 = np.zeros((B, 13), dtype=np.float32)
+    x0[:, 0:2] = rng.uniform(-1, 1, (B, 2))
+    x0[:, 3:5] = rng.uniform(-0.3, 0.3, (B, 2))
+    yaw = rng.uniform(-np.pi, np.pi, B)
+    x0[:, 8], x0[:, 9] = np.sin(yaw / 2), np.cos(yaw / 2)
+    x0[:, 12] = rng.uniform(-0.3, 0.3, B)
+    return x0
+
+
+def planar_phase(device, card: str, check, tmp: Path) -> list:
+    """9e: the planar model family on the card, float32."""
+    from ft_mpc_torch.api import DEFAULT_TUNING, build_scenario_with_terminal
+    from ft_mpc_torch.controllers import spiraling as sp
+    from ft_mpc_torch.geometry.scenario import stack_scenarios
+    from ft_mpc_torch.models.planar import planar_body_params, planar_fault
+    from ft_mpc_torch.sim import env
+    from ft_mpc_torch.utils.faults import BrokenThruster
+    from ft_mpc_torch.utils.trajectory import generate_trajectory, prepare_center_trajectory
+
+    plant = planar_body_params(0.1, torch.float32, device)
+    mass = float(plant.mass)
+    scs = []
+    for idx in PLANAR_PATTERNS:
+        t0 = time.perf_counter()
+        sc = build_scenario_with_terminal(plant, planar_fault([BrokenThruster(i, 1.0)
+                                                                for i in idx]),
+                                          DEFAULT_TUNING, cache_dir=tmp, device=device)
+        sync(device)
+        log(f"planar {idx or 'healthy'}: a miss of an empty cache, built in "
+            f"{time.perf_counter() - t0:.3f} s host; hull facets F="
+            f"{int(sc.hull_mask.sum())} of {sc.hull_mask.shape[0]}, terminal rows "
+            f"{int(sc.term_mask.sum())}")
+        scs.append(sc)
+    bank = stack_scenarios(scs, device=device, dtype=torch.float32).scenarios
+    ctx = Ctx(device, torch.float32, BATCH, x0=planar_x0(BATCH), bank=bank, params=plant,
+              mass=mass)
+    res, warm, out = drive_main_path(ctx, PORT_WARMUP, PORT_STEPS)
+    res["max_absent_u"] = float(out.u_phys[:, 8:].abs().max())
+    log("planar bank: " + json.dumps(res))
+    log(f"planar bank (B={BATCH}, Nt={HORIZON}, {PORT_WARMUP}+{PORT_STEPS} steps): p50 "
+        f"{res['p50_ms']:.3f} ms, max_r_prim {res['max_r_prim']:.3e}, max_term_gap "
+        f"{res['max_term_gap']:.5f}, thrusters 8-15 at most {res['max_absent_u']:.3e} N; "
+        f"card: {card}")
+    check(res["finite"], "planar bank: non-finite outputs")
+    check(res["max_absent_u"] <= 1e-6,
+          f"planar bank: an absent thruster commanded {res['max_absent_u']}")
+    check(res["max_term_gap"] <= GAP_GATE,
+          f"planar bank: max_term_gap {res['max_term_gap']} > {GAP_GATE}")
+    n = PORT_WARMUP + PORT_STEPS
+    want = {k: m * n + (k == "condense_lanes") for k, m in LOOP_LAUNCHES.items()}
+    want.update(riccati_bwd_lanes=0, riccati_fwd_lanes=0)
+    check(res["launches"] == want, f"planar bank: launches {res['launches']}, expected {want}")
+
+    rows = [check_condense(ctx, warm),
+            check_admm(ctx, admm_inputs(ctx, warm, ctx.weights), ctx.cfg.admm.iters,
+                       "planar T=64")]
+    rows.append(time_alloc_main(ctx, out, "planar"))
+    for r in rows:
+        r["shape"] = f"planar bank: {r['shape']}"
+        r["launches"] = res["launches"][r["name"]]
+        log("kernel: " + json.dumps(with_share(r)))
+    for r in rows[:2]:
+        ok = (r["max_abs_err"] <= r["tol"]) if "tol" in r else (r["max_rel_err"] <= r["tol_rel"])
+        check(ok and np.isfinite(r["max_abs_err"]),
+              f"{r['name']} ({r['shape']}) disagrees with its plain version")
+    hold_alloc_main(ctx, out, "planar", check)
+
+    small = torch.arange(PLANAR_SMALL, device=device)
+    step = card_vs_cpu(device, ctx.x0[small].cpu().numpy(),
+                       bank=ctx.sp.take_rows(ctx.bank, small), params=plant, mass=mass)
+    log(f"planar bank, whole step card vs CPU port ({step['rows']} rows, float32): "
+        f"max |dwrench| {step['wrench_err']:.3e}, max |du_phys| {step['u_err']:.3e} "
+        f"(tol {TOL_STEP_U}) on the rows whose allocation took the same branches; "
+        f"{step['branch_rows']} rows on a branch threshold")
+    check(step["finite"] and step["wrench_err"] <= TOL_STEP_U
+          and step["u_err"] <= TOL_STEP_U and step["branch_rows"] <= step["rows"] // 8,
+          f"planar bank: card step differs from the CPU port: {step}")
+    del ctx, warm, out
+
+    # tests/test_planar.py:56-86 on the card: (6), Nt=12, 2 SQP iterations
+    sc6 = scs[PLANAR_PATTERNS.index((6,))]
+    traj = generate_trajectory("hover", 0.1, 20)
+    xr, ur = prepare_center_trajectory(traj, sc6.omega_des.cpu().numpy(), mass, 0.1, 13)
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=device)
+    x0 = np.zeros(13)
+    x0[0:2] = [0.5, -0.3]
+    x0[9] = 1.0
+    w = sp.MPCWeights.from_diagonals(Q_DIAG, R_DIAG, dtype=torch.float32, device=device)
+    zero_counters()
+    t0 = time.perf_counter()
+    hist = env.rollout(plant, sc6, w, sp.MPCConfig(horizon=12, sqp_iters=2),
+                       env.SimConfig(steps=PLANAR_LOOP, noise_mode="none"), t(x0), t(xr),
+                       t(ur))
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    s = hist.state.double()
+    err = torch.linalg.vector_norm((hist.c0[:, 0:2] - hist.x_ref0[:, 0:2]).double(), dim=1)
+    loop = {"steps": PLANAR_LOOP, "ms_per_step": 1e3 * wall / PLANAR_LOOP,
+            "max_abs_z": float(s[:, 2].abs().max()),
+            "max_abs_roll_pitch_rate": float(s[:, 10:12].abs().max()),
+            "orbit_centre_error_ratio": float(err[-1] / err[0]),
+            "max_absent_u": float(hist.u_phys[:, 8:].abs().max()),
+            "finite": bool(torch.isfinite(s).all()), "launches": launches}
+    log("planar hover (per-scenario rollout, (6), Nt=12, 2 SQP iterations, no noise; "
+        "drift and error ratio not gated): " + json.dumps(loop))
+    check(loop["finite"] and loop["max_absent_u"] <= 1e-6,
+          f"planar hover: absent thrusters commanded {loop['max_absent_u']} (or not finite)")
+    return rows
+
+
+def drive_sharding(device, card: str, check, main_p50: float) -> None:
+    """Section 9: the sharded lanes step on one and two shards, the launch
+    entry point in subprocesses, the dry run and the planar model family."""
+    import tempfile
+
+    from ft_mpc_torch.parallel import mesh as pm
+    from ft_mpc_torch.parallel.dryrun import dryrun_multichip
+    from ft_mpc_torch.sim import env
+    from ft_mpc_torch.solvers.lanes_qp import admm_lanes, newton_kinv
+
+    mesh1 = pm.make_scenario_mesh()
+    log(f"9a: make_scenario_mesh() lists {mesh1.size} CUDA device(s): {mesh1.devices}")
+    ctx = Ctx(device, torch.float32, BATCH)
+    res, prev, out, metrics = sharded_steps(ctx, mesh1, PORT_WARMUP, PORT_STEPS)
+    own = shards_vs_own(ctx, prev, out)
+    log("9a, one shard per device: " + json.dumps({**res, **own, "cleanup_rows": len(
+        own["cleanup_rows"])}))
+    log(f"9a: p50 {res['p50_ms']:.3f} ms (section 2's p50 {main_p50:.3f} ms), "
+        f"{res['solves_per_s']:.1f} solves/s; against get_control_batch on the same "
+        f"inputs: max |diff| {own['max_abs_diff']}; card: {card}")
+    check_sharded("9a", res, out, metrics, check)
+    check(all(v == 0.0 for v in own["max_abs_diff"].values()),
+          f"9a: the sharded step differs from get_control_batch: {own['max_abs_diff']}")
+    del prev, out, metrics
+
+    mesh2 = pm.make_scenario_mesh([device, device])
+    res, prev, out, metrics = sharded_steps(ctx, mesh2, PORT_WARMUP, PORT_STEPS)
+    own = shards_vs_own(ctx, prev, out)
+    log("9b, two shards on the one card: " + json.dumps({**res, "max_abs_diff":
+                                                          own["max_abs_diff"]}))
+    log(f"9b: p50 {res['p50_ms']:.3f} ms (section 2's p50 {main_p50:.3f} ms), "
+        f"{res['solves_per_s']:.1f} solves/s; each shard against get_control_batch on "
+        f"its own rows: max |diff| {own['max_abs_diff']} (tol {SHARD_TOL} N)")
+    check_sharded("9b", res, out, metrics, check)
+    check(own["max_abs_diff"]["u_phys"] <= SHARD_TOL
+          and own["max_abs_diff"]["wrench"] <= SHARD_TOL,
+          f"9b: a shard differs from get_control_batch on its rows: {own['max_abs_diff']}")
+    # not gated: the same last step unsharded; the worst-K cleanup is per shard
+    n0 = newton_kinv.rescues
+    with CleanupRows() as rec:
+        whole = ctx.step(prev.gather())
+    whole_rescues = newton_kinv.rescues - n0
+    one = sorted(int(r) for idx in rec.rows for r in idx)
+    du = (whole.u_phys - metrics.u_phys.gather()).abs().amax(dim=1).cpu()
+    moved = set(np.flatnonzero(du.numpy() > SHARD_TOL).tolist())
+    only = set(one) ^ set(own["cleanup_rows"])
+    log(f"9b against the unsharded B={BATCH} step from the same warm start (not gated): "
+        f"cleanup took {len(one)} rows unsharded, {len(own['cleanup_rows'])} sharded "
+        f"(K={ctx.cfg.cleanup_k} per shard), {len(only)} rows in one and not the other; "
+        f"{len(moved)} rows differ by more than {SHARD_TOL} N, {len(moved & only)} of them "
+        f"among those; max |du| {float(du.max()):.3e} N; newton_kinv rescues "
+        f"{whole_rescues} unsharded, {own['rescues']} per shard")
+    del prev, out, metrics, whole
+
+    sim = env.SimConfig(steps=SHARD_ROLLOUT, noise_mode="reference")
+    gens = [torch.Generator(device=device).manual_seed(i) for i in range(mesh2.size)]
+    zero_counters()
+    with StepRecorder("get_control_batch", device) as rec:
+        hist = pm.sharded_rollout_lanes(mesh2, ctx.params, ctx.bank, ctx.weights, ctx.cfg,
+                                        sim, ctx.x0, ctx.x_ref_full, ctx.u_ref_full,
+                                        gens).gather()
+    roll = history_stats(hist, rec, ctx.bank.u_ub)
+    roll["launches"] = read_counters()
+    log("9b, sharded_rollout_lanes (2 shards, one seeded generator each, 'reference' "
+        "noise): " + json.dumps(roll))
+    check(roll["finite"], "9b rollout: history not finite")
+    check(roll["u_below_0"] <= 1e-6 and roll["u_above_ub"] <= 1e-6,
+          f"9b rollout: u_phys outside [0, u_ub] by {roll['u_below_0']}, {roll['u_above_ub']}")
+    check(roll["max_broken_u"] <= 1e-6,
+          f"9b rollout: a broken thruster commanded {roll['max_broken_u']}")
+    want = {k: m * SHARD_ROLLOUT * 2 + (k == "condense_lanes") * 2
+            for k, m in LOOP_LAUNCHES.items()}
+    got = {k: roll["launches"][k] for k in want}
+    check(got == want, f"9b rollout: launches {got}, expected {want}")
+    del ctx, hist
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as d:
+        launch_phase(check, Path(d))
+
+    zero_counters()
+    t0 = time.perf_counter()
+    try:
+        dr = dryrun_multichip(2, device="cuda")
+    except AssertionError as e:
+        dr = None
+        check(False, f"9d: dryrun_multichip(2) failed: {e}")
+    launches = read_counters()
+    log(f"9d: dryrun_multichip(2, cuda) in {time.perf_counter() - t0:.1f} s: {dr}; "
+        f"launches {launches}, ADMM by design {admm_lanes.launches_by_design} (the boxed "
+        "leg's T=216 runs the shared-memory design)")
+    check(all(launches[k] > 0 for k in CONDENSED_KERNELS),
+          f"9d: a kernel of the condensed path never launched: {launches}")
+
+    with tempfile.TemporaryDirectory() as d:
+        planar_phase(device, card, check, Path(d))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=Path, metavar="FILE",
@@ -2046,6 +2502,8 @@ def main(argv=None) -> int:
     rows.append(drive_port_banks(device, card, check))
     torch.cuda.empty_cache()
     drive_slice_api(device, card, check)
+    torch.cuda.empty_cache()
+    drive_sharding(device, card, check, main_res["p50_ms"])
     if args.profile:
         args.profile.parent.mkdir(parents=True, exist_ok=True)
         args.profile.write_text("\n".join(profiles))

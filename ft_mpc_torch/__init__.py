@@ -41,3 +41,7 @@ def pin_fp32_matmuls() -> None:
 
 
 pin_fp32_matmuls()
+
+# after resolve_device: ops.dynamics imports it from this package
+from ft_mpc_torch.utils.faults import BrokenThruster  # noqa: E402,F401
+from ft_mpc_torch.ops.dynamics import BodyParams, build_thruster_matrix  # noqa: E402,F401

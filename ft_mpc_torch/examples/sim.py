@@ -12,8 +12,9 @@ exports the 67-column CSV.
 
 Fault patterns whose terminal ingredients are not cached run the offline
 pipeline first (`ft_mpc_torch.api`); --cache-dir puts the cache elsewhere
-than the port's own.  The animation needs the port's viz/, which it does
-not have yet: --no-anim is implied.
+than the port's own.  Unless --no-anim, the first scenario's rollout is
+animated (`ft_mpc_torch.viz.animate_rollout`) into sim_anim_torch.gif beside
+the CSV; without matplotlib the animation is skipped.
 """
 
 from __future__ import annotations
@@ -149,7 +150,14 @@ def main(argv=None) -> dict:
     export_csv(hist0, host_array(params.D), str(csv_path))
     print(f"history exported to {csv_path}")
     if not args.no_anim:
-        print("animation skipped: the port has no viz/ yet (--no-anim implied)")
+        anim_path = csv_path.parent / "sim_anim_torch.gif"
+        try:
+            from ft_mpc_torch.viz.animate import animate_rollout
+
+            animate_rollout(hist0, scenario, save_path=str(anim_path))
+            print(f"animation saved to {anim_path}")
+        except ImportError as e:  # no matplotlib on this host
+            print(f"animation skipped: {e}")
     return {"history": hist0, "scenario": scenario, "final_error_m": final_err,
             "elapsed_s": elapsed, "build_s": build_s, "misses": misses, "scenarios": B,
             "steps": cfg_run.steps}

@@ -14,7 +14,7 @@ from dataclasses import dataclass
 
 import numpy as np
 from scipy.optimize import linprog
-from scipy.spatial import HalfspaceIntersection
+from scipy.spatial import ConvexHull, HalfspaceIntersection
 
 
 @dataclass
@@ -46,11 +46,20 @@ class Polytope:
         b = np.concatenate([upper, -lower])
         return cls(A, b)
 
+    @classmethod
+    def from_vertices(cls, vertices) -> "Polytope":
+        hull = ConvexHull(np.asarray(vertices, dtype=np.float64))
+        eq = np.unique(np.round(hull.equations, 12), axis=0)
+        return cls(eq[:, :-1], -eq[:, -1])
+
     def normalized(self) -> "Polytope":
         """Scale each row so ||A_i|| = 1 (improves solver conditioning)."""
         norms = np.linalg.norm(self.A, axis=1)
         norms = np.where(norms < 1e-12, 1.0, norms)
         return Polytope(self.A / norms[:, None], self.b / norms)
+
+    def contains(self, x, tol: float = 1e-9) -> bool:
+        return bool(np.all(self.A @ np.asarray(x) <= self.b + tol))
 
     def chebyshev_center(self) -> tuple[np.ndarray, float]:
         """Center and radius of the largest inscribed ball (one LP)."""
@@ -157,6 +166,18 @@ class Polytope:
     def minkowski_subtract_ball(self, r: float) -> "Polytope":
         """P minus the ball {||x|| <= r}: each facet moves in by r ||A_i||."""
         return Polytope(self.A, self.b - np.linalg.norm(self.A, axis=1) * r)
+
+    def minkowski_add_vector(self, v: np.ndarray) -> "Polytope":
+        """P plus {v}: translate by v (exact in H-rep: b += A @ v)."""
+        return Polytope(self.A, self.b + self.A @ np.asarray(v))
+
+    def set_subtraction_along_vector(self, v: np.ndarray) -> "Polytope":
+        """Shrink by the segment [-v, v]:  b -= |A @ v|."""
+        return Polytope(self.A, self.b - np.abs(self.A @ np.asarray(v)))
+
+    def transform_input(self, M: np.ndarray) -> "Polytope":
+        """{y : A (M y) <= b} -- the preimage of P under x = M y."""
+        return Polytope(self.A @ M, self.b)
 
     def as_padded(self, max_facets: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Fixed-shape (A, b, mask) for device-side batching.

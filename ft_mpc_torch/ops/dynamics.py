@@ -91,6 +91,11 @@ class FaultState(NamedTuple):
     intensity: torch.Tensor  # (16,)
 
     @classmethod
+    def healthy(cls, device=None, dtype: torch.dtype = torch.float32) -> "FaultState":
+        """No thruster broken, on `device` (default cuda)."""
+        return cls.from_faults((), device=device, dtype=dtype)
+
+    @classmethod
     def from_faults(cls, faults, device=None,
                     dtype: torch.dtype = torch.float32) -> "FaultState":
         """From an iterable of `BrokenThruster`-like (index, intensity)."""

@@ -143,7 +143,8 @@ def test_demo_main_on_cpu(cache_copy, tmp_path, capsys):
                      out, re.M), out
     assert re.search(r"^final orbit-center position error: \d+\.\d{4} m$", out, re.M), out
     assert f"history exported to {csv}" in out
-    assert "animation skipped" in out
+    anim = tmp_path / "sim_anim_torch.gif"
+    assert f"animation saved to {anim}" in out and anim.stat().st_size > 0
     assert res["steps"] == 10 and res["scenarios"] == 2
     assert np.isfinite(res["final_error_m"])
     hist = res["history"]

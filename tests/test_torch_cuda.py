@@ -530,3 +530,136 @@ def test_spiraling_mpc_card_matches_cpu(dev):
         assert lq.admm_lanes.launches == n0
     assert np.isfinite(us[0]).all() and us[0].shape == (16,)
     np.testing.assert_allclose(us[0], us[1], rtol=0, atol=2e-2)
+
+
+def test_two_shards_on_one_card_equal_per_shard_steps(dev):
+    """`sharded_control_step_lanes` on ["cuda:0", "cuda:0"]: each shard is
+    `get_control_batch` on its own rows (the same calls on the same card),
+    launching the three kernels once per shard as often as one step does."""
+    from ft_mpc_torch.parallel import mesh as pm
+
+    B, Nt = 32, 8
+    params, bank, w, cfg, x0, xr, ur = _loop_setup(dev, B, Nt)
+    xr, ur = xr[: Nt + 1], ur[: Nt + 1]
+    mesh = pm.make_scenario_mesh([dev, dev])
+    assert mesh.size == 2 and mesh.devices[0] == mesh.devices[1]
+    c0 = sp.robot_to_center(bank.r, x0)
+    warm = pm.sharded_init_warmstart(mesh, params, bank, w, cfg, c0, xr, ur)
+    n0 = (lc.condense_lanes.launches, lq.admm_lanes.launches,
+          la.allocate_thrusters_lanes.launches)
+    out, metrics = pm.sharded_control_step_lanes(mesh, params, bank, w, cfg, x0, xr, ur, warm)
+    torch.cuda.synchronize()
+    n1 = (lc.condense_lanes.launches, lq.admm_lanes.launches,
+          la.allocate_thrusters_lanes.launches)
+    assert tuple(b - a for a, b in zip(n0, n1)) == (2 * 3, 2 * 4, 2 * 1), (n0, n1)
+    half = B // 2
+    for i, shard in enumerate(out.shards):
+        rows = torch.arange(i * half, (i + 1) * half, device=dev)
+        own = sp.get_control_batch(params, take_rows(bank, rows), w, cfg, x0[rows], xr, ur,
+                                   warm.shards[i])
+        for name in ("u_phys", "wrench"):
+            np.testing.assert_allclose(np_(getattr(shard, name)), np_(getattr(own, name)),
+                                       rtol=0, atol=1e-6, err_msg=name)
+    cost = torch.stack([s.info.cost.mean() for s in out.shards]).mean()
+    assert float(metrics.mean_cost) == pytest.approx(float(cost), rel=1e-6)
+    assert float(metrics.max_r_prim) == max(float(s.info.r_prim.max()) for s in out.shards)
+    assert metrics.u_phys.gather().shape == (B, 16)
+
+
+def _planar_bank(cache_dir, device, rows):
+    """Planar healthy, (6) and (2) stuck on, DEFAULT_TUNING, the float32
+    plant (misses of an empty cache: the pipeline runs), tiled to `rows`."""
+    from ft_mpc_torch.api import DEFAULT_TUNING, build_scenario_with_terminal
+    from ft_mpc_torch.geometry.scenario import stack_scenarios
+    from ft_mpc_torch.models.planar import planar_body_params, planar_fault
+    from ft_mpc_torch.utils.faults import BrokenThruster
+
+    host = planar_body_params(0.1, F32, "cpu")
+    scs = [build_scenario_with_terminal(host, planar_fault(f), DEFAULT_TUNING,
+                                        cache_dir=cache_dir, device="cpu")
+           for f in ([], [BrokenThruster(6, 1.0)], [BrokenThruster(2, 1.0)])]
+    bank = tile_bank(stack_scenarios(scs, device=device, dtype=F32).scenarios, -(-rows // 3))
+    return planar_body_params(0.1, F32, device), take_rows(bank, torch.arange(rows,
+                                                                               device=device))
+
+
+def test_planar_bank_kernels_match_plain(dev, tmp_path):
+    """Kernels 1-3 on the planar bank's own inputs (a degenerate wrench hull
+    with equality rows, thrusters 8-15 dead): one condensed step at B=64,
+    then each kernel against its plain version on that step's data."""
+    B, Nt = 64, 15
+    params, bank = _planar_bank(tmp_path, dev, B)
+    cfg = sp.MPCConfig(
+        horizon=Nt, sqp_iters=2, newton_iters=3, cleanup_iters=100, cleanup_k=8,
+        admm=StructuredADMMConfig(iters=60, phases=1, rho=50.0, adapt_clip=1.5),
+    )
+    w = sp.MPCWeights.from_diagonals([1] * 6 + [2] * 3, [0.1] * 3 + [0.01] * 3, device=dev)
+    traj = generate_trajectory("hover", 0.1, 5)
+    xr, ur = prepare_center_trajectory(traj, np.array([0.0, 0.0, 0.6]), 14.5, 0.1, Nt + 1)
+    rng = np.random.default_rng(0)
+    x0 = np.zeros((B, 13))
+    x0[:, 0:2] = rng.uniform(-0.5, 0.5, (B, 2))
+    yaw = rng.uniform(-np.pi, np.pi, B)
+    x0[:, 8], x0[:, 9] = np.sin(yaw / 2), np.cos(yaw / 2)
+    t = lambda a: torch.as_tensor(a, dtype=F32, device=dev)
+    x0, x_ref, u_ref = t(x0), t(xr[: Nt + 1]), t(ur[: Nt + 1])
+    warm = sp.init_warmstart_batch(params, bank, w, cfg, sp.robot_to_center(bank.r, x0),
+                                   x_ref, u_ref)
+    out = sp.get_control_batch(params, bank, w, cfg, x0, x_ref, u_ref, warm)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.u_phys).all()
+    assert float(out.u_phys[:, 8:].abs().max()) <= 1e-6
+
+    # kernel 1: the stage jacobians of the step's trajectory
+    X = torch.cat([sp.robot_to_center(bank.r, x0)[:, None], out.warm.X[:, 1:]], dim=1)
+    A, Bm, d = (a.float().contiguous() for a in sp._linearize(params, bank, cfg, X,
+                                                              out.warm.U, u_ref))
+    S, phi = lc.condense_lanes(A, Bm, d)
+    S0, phi0 = lc.condense_plain(A, Bm, d)
+    np.testing.assert_allclose(np_(S), np_(S0), rtol=1e-5, atol=1e-5 * float(S0.abs().max()))
+    np.testing.assert_allclose(np_(phi), np_(phi0), rtol=1e-5,
+                               atol=1e-5 * max(1.0, float(phi0.abs().max())))
+
+    # kernel 2: the condensed QP of that trajectory with its exact metric
+    x_ref_b = sp._per_scenario_ref(bank, x_ref, B)
+    qp, _, _, _ = sp._assemble_condensed_batch(params, bank, w, cfg, X, out.warm.U, x_ref_b,
+                                               u_ref, *sp._masked_geometry(bank))
+    rho = out.warm.rho.float()
+    K, _ = lq.build_K(qp, rho, cfg.admm.sigma)
+    f = lambda a: a.float().contiguous()
+    args = [f(lq.exact_kinv(K)), f(qp.hull_A), f(qp.h_hull), f(qp.G_term), f(qp.h_term),
+            f(qp.g), torch.zeros_like(f(qp.g)), f(torch.clamp(qp.h_hull, max=0.0)),
+            f(torch.clamp(qp.h_term, max=0.0)), f(out.warm.y_hull), f(out.warm.y_term), rho]
+    hyper = (cfg.admm.sigma, cfg.admm.alpha, 60, cfg.admm.elastic_y_max)
+    got, ref = lq.admm_lanes(*args, *hyper), lq.admm_plain(*args, *hyper)
+    for g, r in zip(got, ref):
+        assert torch.isfinite(r).all()
+        scale = max(1.0, float(r.abs().max()))
+        assert float((g - r).abs().max()) <= 5e-4 * scale
+
+    # kernel 3: the step's wrenches, card against the CPU's plain version,
+    # u compared where both took the same branches (the hull test sits on
+    # facets of the degenerate hull)
+    def alloc(device):
+        b = tree_to(bank, device)
+        p = BodyParams(*(x.to(device) for x in params))
+        return la.allocate_thrusters_lanes(out.wrench.to(device), p.D, b.u_ub,
+                                           b.faulty_force_gen, b.hull_A, b.hull_b,
+                                           b.hull_mask, b.gen_G, b.gen_c, b.gen_L,
+                                           p.max_thrust)
+
+    n0 = la.allocate_thrusters_lanes.launches
+    a_g = alloc(dev)
+    assert la.allocate_thrusters_lanes.launches == n0 + 1
+    a_c = alloc(torch.device("cpu"))
+    branch = lambda o: torch.stack([o.was_clipped, o.used_fallback], 1).cpu()
+    same = (branch(a_g) == branch(a_c)).all(dim=1).numpy()
+    assert same.sum() >= B - B // 8
+    np.testing.assert_allclose(np_(a_g.u_phys)[same], np_(a_c.u_phys)[same], atol=1e-2)
+    assert float(a_g.u_phys[:, 8:].abs().max()) <= 1e-6
+
+
+def tree_to(tree, device):
+    from torch.utils._pytree import tree_map
+
+    return tree_map(lambda x: x.to(device), tree)

@@ -1,7 +1,8 @@
 """ft_mpc_torch stands alone, and its committed bank snapshot is the bench bank.
 
 1. A fresh interpreter imports every ft_mpc_torch module; neither `jax`
-   nor any `ft_mpc_tpu` module may end up in sys.modules.  A copy of the
+   nor any `ft_mpc_tpu` module may end up in sys.modules, nor matplotlib,
+   which `viz/` imports only when a function runs.  A copy of the
    package builds its C++ hull engine into its own `build/` and builds a
    bank with it, without JAX, and leaves the JAX package's engine library
    (`ft_mpc_tpu/runtime/libftmpc_runtime.so`) as it found it.
@@ -135,14 +136,18 @@ def test_port_imports_no_jax():
         "    importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'ft_mpc_tpu'))]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 48, names\n"
+        "assert len(names) >= 59, names\n"
+        "assert 'matplotlib' not in sys.modules  # viz/ imports it when a function runs\n"
         "for n in ('api', 'geometry.polytope', 'geometry.zonotope', 'geometry.invariant',\n"
         "          'geometry.scenario', 'runtime.native', 'terminal.quadratic',\n"
         "          'terminal.pipeline', 'terminal.reference_io', 'utils.faults',\n"
         "          'utils.config', 'controllers.spiral_params', 'controllers.orbit_search',\n"
         "          'controllers.certify', 'controllers.reference_solver',\n"
         "          'controllers.dummy', 'utils.logging', 'examples.sim', 'cli',\n"
-        "          'benchmarks.accuracy'):\n"
+        "          'benchmarks.accuracy', 'parallel', 'parallel.mesh',\n"
+        "          'parallel.distributed', 'parallel.launch', 'parallel.dryrun', 'models',\n"
+        "          'models.planar', 'viz', 'viz.animate', 'viz.dashboards',\n"
+        "          'viz.polytope_plot'):\n"
         "    assert 'ft_mpc_torch.' + n in names, n\n"
         "print(len(names))\n"
     )
