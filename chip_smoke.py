@@ -60,10 +60,10 @@
      inertia, the rows' own states), 3 + 10 steps each: plant and launch
      gates (3 / 5 / 1 a step), kernels 1-3 held on each bank's own inputs,
      and one whole step card vs CPU port on 64 / 32 rows;
-   - runs the condensed path at B=256 and horizons 20, 38 (ADMM with K^-1 in
-     shared memory) and 40 (K^-1 and G_term in device memory) for 2 steps
-     each, and holds the ADMM kernel against its plain version on each
-     run's last QP (T=64, 60 iterations).
+   - runs the condensed path at B=256 and horizons 20, 38 and 40 (the ADMM
+     cluster design: 1, 2 and 2 blocks a scenario) for 2 steps each, and
+     holds the ADMM kernel against its plain version on each run's last QP
+     (T=64, 60 iterations).
 
 8. Drives the user-facing slice (`ft_mpc_torch.api`, the demo, the
    accuracy harness, the offline pipeline):
@@ -102,14 +102,32 @@
    - 9c: `python -m ft_mpc_torch.parallel.launch` in subprocesses: a NCCL
      world of one with two shards, two processes sharing the card over gloo
      (equal to the first at 1e-5 N), a NCCL world of one with one shard;
-   - 9d: `dryrun_multichip(2, device="cuda")`, its three legs gated (the
-     only measured path with the ADMM kernel's state-box and rate rows);
+   - 9d: `dryrun_multichip(2, device="cuda")`, its three legs gated (its
+     boxed leg at B=4, T=216);
    - 9e: the planar bank (healthy, (6) and (2) stuck on, pipeline misses of
      an empty cache) tiled to B=2048 from planar states, 3 + 10 condensed
      steps: thrusters 8-15 at most 1e-6 N, max_term_gap <= 0.4, launches
      3 / 5 / 1, kernels 1-3 held and timed on its own inputs, one step card
      vs CPU on 32 rows; then `tests/test_planar.py`'s hover (per-scenario,
      30 steps), its drift printed and its absent thrusters gated at 1e-6 N.
+10. Drives the condensed configuration of section 2 with the state box and
+   rate rows of the reference's reactive.yaml (`tests/test_config_bounds.py`:
+   0.5 m/s on the three velocities, du_max [2, 2, 2, 1, 1, 1]; T=596 dense
+   rows at Nt=15), B=2048, `init_warmstart_batch` and 3 + 10 chained steps
+   with the launch counters zeroed just before and read just after: p50,
+   p99, solves/s, max_r_prim, max_term_gap and the largest planned stage
+   velocity beyond the box printed; finite outputs, u_phys (2048, 16),
+   launches 3 / 5 / 1 a step with every ADMM launch in the cluster design;
+   the ADMM kernel held against its plain version on the path's last QP (60
+   iterations) and on its worst 256 rows (600 iterations), each timed beside
+   its bound; the allocation kernel on the path's wrenches; one whole step
+   on 64 rows three ways (the kernels against their plain versions on the
+   card and the card against the CPU port, from the path's states; the card
+   against the CPU port near the terminal sets), each within TOL_STEP_U on
+   the rows where every threshold of the step went the same way on both
+   sides, with at most a quarter of the rows on a threshold (BOX_STATES_NOTE),
+   the box excess of both sides and their distance from the CPU port in
+   float64 printed.
 
 Prints the card's name and power limit, one JSON line with every kernel's
 numbers, and as its last line {"ok": true, "device": {...}}.  Exits with a
@@ -213,7 +231,7 @@ PORT_WARMUP = 3
 PORT_STEPS = 10
 PORT_SMALL = (64, 32)  # rows of the card-vs-CPU step: census bank, randomized bank
 TOL_BANK = 1e-12  # the port's bench rows against bench_bank32.npz (float64)
-C2_HORIZONS = (20, 38, 40)  # K^-1 in shared memory to Nt=38, in device memory beyond
+C2_HORIZONS = (20, 38, 40)  # the ADMM cluster design: 1, 2 and 2 blocks a scenario
 C2_BATCH = 256
 C2_STEPS = 2
 # section 8: the user-facing API, the demo, the accuracy harness, the pipeline
@@ -237,6 +255,19 @@ TOL_PROCS = 1e-5  # 2 processes against 1: tests/test_distributed.py:164-171
 PLANAR_PATTERNS = ((), (6,), (2,))
 PLANAR_SMALL = 32  # rows of the planar card-vs-CPU step
 PLANAR_LOOP = 30  # steps of the planar hover (per-scenario path)
+# section 10: the condensed step with the reference's state box and rate rows
+BOX_V = 0.5  # m/s on the three velocities: the reactive.yaml of tests/test_config_bounds.py
+BOX_DU_MAX = (2.0, 2.0, 2.0, 1.0, 1.0, 1.0)
+BOX_WARMUP = 3
+BOX_STEPS = 10
+BOX_SMALL = 64  # rows of the card-vs-CPU boxed step
+BOX_STATES_NOTE = (
+    "with the state box, a few of 64 rows end up to ~0.1 N apart between any two "
+    "float32 runs of the step (card or CPU, kernels or their plain versions), each "
+    "on a row where one of the step's thresholds went the other way: ADMM holds rho "
+    "once a phase's r_prim <= 1e-4 and otherwise adapts it (by up to 5x in the "
+    "cleanup), and the line search picks one of three step lengths; such rows are "
+    "counted, as the allocation's branches are, and the others held to TOL_STEP_U")
 CONDENSED_KERNELS = ("condense_lanes", "admm_lanes", "allocate_thrusters_lanes")
 STAGEWISE_KERNELS = ("riccati_bwd_lanes", "riccati_fwd_lanes",
                      "allocate_thrusters_lanes")
@@ -262,11 +293,13 @@ class Ctx:
     """Everything the main path needs, on one device and dtype."""
 
     def __init__(self, device, dtype, B: int, x0=None, stagewise_horizon: int = 0,
-                 bank=None, params=None, horizon: int = 0, mass: float = 16.8):
+                 bank=None, params=None, horizon: int = 0, mass: float = 16.8,
+                 box: bool = False):
         """`bank` (tiled over its rows to B; default the 32-pattern snapshot)
         and `params` (default BodyParams.default) give another bank and
         plant, `mass` the nominal mass of its reference inputs; `horizon`
-        another horizon of the condensed configuration."""
+        another horizon of the condensed configuration; `box` the weights of
+        `box_weights` (the state box and rate rows)."""
         from ft_mpc_torch.controllers import spiraling as sp
         from ft_mpc_torch.geometry.scenario import load_bank_snapshot, take_rows, tile_bank
         from ft_mpc_torch.ops.dynamics import BodyParams
@@ -285,8 +318,9 @@ class Ctx:
         self.bank = take_rows(bank, torch.arange(B, device=device))
         self.params = (BodyParams.default(0.1, dtype=dtype, device=device) if params is None
                        else tree_to(params, device, dtype))
-        self.weights = sp.MPCWeights.from_diagonals(Q_DIAG, R_DIAG, dtype=dtype,
-                                                    device=device)
+        self.weights = (box_weights(device, dtype) if box else
+                        sp.MPCWeights.from_diagonals(Q_DIAG, R_DIAG, dtype=dtype,
+                                                     device=device))
         if stagewise_horizon:
             # benchmarks/long_horizon.py:73-101
             Nt = stagewise_horizon
@@ -325,6 +359,25 @@ class Ctx:
     def step(self, warm):
         return self.sp.get_control_batch(self.params, self.bank, self.weights, self.cfg,
                                          self.x0, self.x_ref, self.u_ref, warm)
+
+
+def box_weights(device, dtype=torch.float32):
+    """The weights of tests/test_config_bounds.py's reactive.yaml: Q, R of
+    DEFAULT_TUNING, xub 1e8 but BOX_V on the three velocities, xlb = -xub,
+    du_max BOX_DU_MAX.  At Nt=15 they add 2*13*14 box and 2*6*14 rate rows to
+    the 64 terminal rows: T=596."""
+    from ft_mpc_torch.controllers import spiraling as sp
+
+    x_ub = np.full(13, 1e8)
+    x_ub[3:6] = BOX_V
+    return sp.MPCWeights.from_diagonals(Q_DIAG, R_DIAG, x_lb=-x_ub, x_ub=x_ub,
+                                        du_max=BOX_DU_MAX, dtype=dtype, device=device)
+
+
+def box_excess(X) -> float:
+    """The largest planned stage velocity beyond the box: max over rows of
+    max(0, |v| - BOX_V) on stages 1..Nt-1 (stage 0 is the measured state)."""
+    return float(torch.clamp(X[:, 1:-1, 3:6].abs() - BOX_V, min=0).max())
 
 
 def tree_to(tree, device, dtype):
@@ -915,44 +968,181 @@ def check_riccati(ctx: Ctx, fact, q, r, qN, x0, label: str, reps: int = 20) -> l
     return rows
 
 
+class PlainKernels:
+    """For the length of a `with` block, every kernel launcher runs its plain
+    PyTorch version on the card's tensors (and counts no launch)."""
+
+    def __enter__(self):
+        from ft_mpc_torch.solvers import lanes_alloc, lanes_condense, lanes_qp
+
+        self.swaps = [(lanes_qp, "_admm_cuda", lanes_qp.admm_plain),
+                      (lanes_condense, "_condense_cuda", lanes_condense.condense_plain),
+                      (lanes_alloc, "_alloc_cuda", lanes_alloc.alloc_plain)]
+        self.real = [getattr(m, name) for m, name, _ in self.swaps]
+        for m, name, plain in self.swaps:
+            setattr(m, name, plain)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, name, _), real in zip(self.swaps, self.real):
+            setattr(m, name, real)
+
+
+class _Hooked:
+    """A module function with a hook called after each call (`after(args,
+    kwargs, out)`); attributes (the launch counters) are the function's."""
+
+    def __init__(self, real, after):
+        object.__setattr__(self, "real", real)
+        object.__setattr__(self, "after", after)
+
+    def __call__(self, *args, **kwargs):
+        out = self.real(*args, **kwargs)
+        self.after(args, kwargs, out)
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+    def __setattr__(self, name, value):
+        setattr(self.real, name, value)
+
+
+class Decisions:
+    """For the length of a `with` block, the discrete decisions the condensed
+    step takes on each bank row: after every ADMM phase whether rho stayed
+    (it freezes once the phase's r_prim <= 1e-4, `solvers/lanes_qp.py`), and
+    the line search's step length; the cleanup's rows are mapped back through
+    its row choice.  `table(B)` gives them as columns, NaN where a row took
+    no part."""
+
+    def __enter__(self):
+        from ft_mpc_torch.controllers import spiraling as sp
+        from ft_mpc_torch.solvers import lanes_qp as lq
+
+        self.log, self.rows, rho_args = [], None, []
+
+        def solved(args, kwargs, sol):
+            seq = rho_args + [sol.rho]
+            held = [(seq[i + 1] == seq[i]).cpu() for i in range(len(seq) - 1)]
+            self.log.append((self.rows, torch.stack(held, dim=1)))
+            rho_args.clear()
+
+        def chose(args, kwargs, out):
+            self.rows = args[1].cpu()
+
+        hooks = ((lq, "admm_lanes", lambda a, k, o: rho_args.append(a[11].clone())),
+                 (sp, "solve_mpc_qp_lanes", solved), (sp, "take_rows", chose),
+                 (sp, "_merit_alpha", lambda a, k, o: self.log.append(
+                     (self.rows, o.cpu()[:, None]))))
+        self.swaps = [(m, name, getattr(m, name)) for m, name, _ in hooks]
+        for m, name, after in hooks:
+            setattr(m, name, _Hooked(getattr(m, name), after))
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, real in self.swaps:
+            setattr(m, name, real)
+
+    def table(self, B: int) -> torch.Tensor:
+        cols = []
+        for rows, v in self.log:
+            full = torch.full((B, v.shape[1]), float("nan"), dtype=torch.float64)
+            full[slice(None) if rows is None else rows] = v.double()
+            cols.append(full)
+        return torch.cat(cols, dim=1) if cols else torch.empty((B, 0), dtype=torch.float64)
+
+
 def card_vs_cpu(device, x0: np.ndarray, stagewise_horizon: int = 0,
-                steps: int = 1, **ctx_kw) -> dict:
+                steps: int = 1, plain_on_card: bool = False, decisions: bool = False,
+                f64: bool = False, **ctx_kw) -> dict:
     """init + `steps` chained whole steps on the card and in the port's CPU
     run, float32 both, on the first len(x0) bank rows from states x0; the
     condensed step, or the stagewise one at `stagewise_horizon`.  Every step
     is compared (from the second on, the warm start, duals and rho carried
-    across steps are held too), and the worst is returned.
+    across steps are held too), and the worst is returned.  With
+    `plain_on_card` the other side is the card with every kernel's plain
+    version (`PlainKernels`) instead of the CPU.  With `f64` the port's CPU
+    run in float64 is a third side, and each float32 side's largest wrench
+    distance from it is returned (`wrench_err_vs_f64`, card first).
 
     The MPC's wrench is compared on every row.  u_phys is compared on the rows
     whose allocation took the same branches on both sides: the wrench lands
     on a hull facet (an active constraint), so the hull test is decided by
     rounding, and the clipped branch's 60-step FISTA projection moves u by up
     to ~1 N (the float64 CPU run differs from the float32 one in the same
-    way).  Those rows are counted.  `ctx_kw` (bank, params) go to Ctx.
+    way).  Those rows are counted.  With `decisions` the condensed step's
+    own thresholds are read too (`Decisions`: rho held or adapted after each
+    ADMM phase, the step length); rows where one of them went differently
+    on the two sides are counted (`split_rows`) and the errors also taken
+    without them (`wrench_err_kept`, `u_err_kept`).  `ctx_kw` (bank, params)
+    go to Ctx.
     """
+    import contextlib
+
     rows = len(x0)
-    outs = []
-    for dev in (device, torch.device("cpu")):
-        ctx = Ctx(dev, torch.float32, rows, x0=x0, stagewise_horizon=stagewise_horizon,
-                  **ctx_kw)
-        warm, per_step = ctx.init(), []
-        for _ in range(steps):
-            o = ctx.step(warm)
-            warm = o.warm
-            flags = torch.stack([o.alloc.was_clipped, o.alloc.used_fallback], dim=1)
-            per_step.append((o.u_phys.cpu(), o.wrench.cpu(), flags.cpu()))
+    outs, excess, tables = [], [], []
+    other = (device, PlainKernels) if plain_on_card else (torch.device("cpu"),
+                                                          contextlib.nullcontext)
+    sides = [(device, torch.float32, contextlib.nullcontext),
+             (other[0], torch.float32, other[1])]
+    if f64:
+        sides.append((torch.device("cpu"), torch.float64, contextlib.nullcontext))
+    record = Decisions if decisions else contextlib.nullcontext
+    for dev, dtype, kernels_as in sides:
+        with kernels_as():
+            ctx = Ctx(dev, dtype, rows, x0=x0, stagewise_horizon=stagewise_horizon,
+                      **ctx_kw)
+            with record() as d:
+                warm = ctx.init()
+            per_step, table = [], [d.table(rows)] if decisions else []
+            for _ in range(steps):
+                with record() as d:
+                    o = ctx.step(warm)
+                warm = o.warm
+                flags = torch.stack([o.alloc.was_clipped, o.alloc.used_fallback], dim=1)
+                per_step.append((o.u_phys.cpu(), o.wrench.cpu(), flags.cpu()))
+                if decisions:
+                    table.append(d.table(rows))
         outs.append(per_step)
+        excess.append(box_excess(warm.X))
+        tables.append(torch.cat(table, dim=1) if decisions else None)
+    if f64:
+        ref, outs, excess = outs.pop(), outs, excess[:2]
+    split = torch.zeros(rows, dtype=torch.bool)
+    if decisions:
+        a, b = tables[:2]
+        split = (torch.ones(rows, dtype=torch.bool) if a.shape != b.shape else
+                 ~((a == b) | (a.isnan() & b.isnan())).all(dim=1))
     res = {"finite": True, "wrench_err": 0.0, "u_err": 0.0, "branch_rows": 0,
-           "rows": rows, "wrench_err_per_step": []}
+           "rows": rows, "wrench_err_per_step": [], "box_excess_card_cpu": excess,
+           "rows_beyond_tol": [], "split_rows": split.nonzero().flatten().tolist(),
+           "wrench_err_kept": 0.0, "u_err_kept": 0.0, "off_rows": 0}
+    off = split.clone()  # rows on a threshold: a split decision or allocation branch
     for (u_g, w_g, f_g), (u_c, w_c, f_c) in zip(*outs):
         same = (f_g == f_c).all(dim=1)
-        w_err = float((w_g - w_c).abs().max())
-        u_err = float((u_g - u_c).abs().max(dim=1).values[same].max()) if same.any() else 0.0
+        off |= ~same
+        dw = (w_g - w_c).abs().amax(dim=1)
+        du = (u_g - u_c).abs().amax(dim=1)
+        w_err = float(dw.max())
+        u_err = float(du[same].max()) if same.any() else 0.0
         res["finite"] &= bool(torch.isfinite(u_g).all() and torch.isfinite(w_g).all())
         res["wrench_err"] = max(res["wrench_err"], w_err)
         res["u_err"] = max(res["u_err"], u_err)
         res["branch_rows"] = max(res["branch_rows"], int((~same).sum()))
         res["wrench_err_per_step"].append(w_err)
+        res["rows_beyond_tol"] = sorted(set(res["rows_beyond_tol"]) | set(
+            (dw > TOL_STEP_U).nonzero().flatten().tolist()))
+        kept = ~split
+        if kept.any():
+            res["wrench_err_kept"] = max(res["wrench_err_kept"], float(dw[kept].max()))
+        if (kept & same).any():
+            res["u_err_kept"] = max(res["u_err_kept"], float(du[kept & same].max()))
+    res["off_rows"] = int(off.sum())
+    if f64:
+        res["wrench_err_vs_f64"] = [
+            max(float((side[1].double() - r[1]).abs().max()) for side, r in zip(out, ref))
+            for out in outs]
     return res
 
 
@@ -1465,43 +1655,44 @@ def port_bank_path(device, label: str, check, bank, small_rows, params=None,
 
 def c2_horizons(device, check, bank) -> dict:
     """7d: the condensed path at B=C2_BATCH on the port's census bank at the
-    horizons of C2_HORIZONS (K^-1 in shared memory up to Nt=38, in device
-    memory beyond), C2_STEPS chained steps each with the counters zeroed
-    before and read after; then the ADMM kernel held against its plain
-    version (TOL_ADMM, relative) on each run's last QP, T=64, 60
-    iterations, and timed beside its bound.  Returns {Nt: kernel row}."""
-    from ft_mpc_torch.solvers.lanes_qp import admm_design
+    horizons of C2_HORIZONS (the ADMM cluster design), C2_STEPS chained
+    steps each with the counters zeroed before and read after; then the ADMM
+    kernel held against its plain version (TOL_ADMM, relative) on each run's
+    last QP, T=64, 60 iterations, and timed beside its bound.  Returns {Nt:
+    kernel row}."""
+    from ft_mpc_torch.solvers.lanes_qp import admm_plan
 
     rows = {}
     for Nt in C2_HORIZONS:
         ctx = Ctx(device, torch.float32, C2_BATCH, bank=bank, horizon=Nt)
         res, warm, _ = drive_main_path(ctx, 0, C2_STEPS)
-        design = admm_design(Nt, ctx.bank.hull_A.shape[1], ctx.bank.term_A.shape[1])
+        plan = admm_plan(Nt, ctx.bank.hull_A.shape[1], ctx.bank.term_A.shape[1])
+        design = plan["design"]
         by = res["admm_launches_by_design"]
         log(f"condensed path at Nt={Nt} (B={C2_BATCH}, {C2_STEPS} steps): p50 "
-            f"{res['p50_ms']:.3f} ms, max_r_prim {res['max_r_prim']:.3e}, ADMM design "
-            f"'{design}', launches {res['launches']}, ADMM by design {by}")
+            f"{res['p50_ms']:.3f} ms, max_r_prim {res['max_r_prim']:.3e}, ADMM plan "
+            f"{plan}, launches {res['launches']}, ADMM by design {by}")
         check(res["finite"], f"condensed path at Nt={Nt}: non-finite outputs")
         check(by[design] == 5 * C2_STEPS and res["launches"]["admm_lanes"] == 5 * C2_STEPS,
               f"condensed path at Nt={Nt}: ADMM launches {by}, expected 5 a step of "
               f"design '{design}'")
         r = check_admm(ctx, admm_inputs(ctx, warm, ctx.weights), ctx.cfg.admm.iters,
-                       f"C2 Nt={Nt} ({design} design)", reps=5)
+                       f"C2 Nt={Nt} ({design} design, {plan['cluster']} blocks)", reps=5)
         r["launches"] = by[design]
-        r["design"] = design
+        r["design"], r["cluster"] = design, plan["cluster"]
         log("kernel: " + json.dumps(with_share(r)))
         check(r["max_rel_err"] <= r["tol_rel"] and np.isfinite(r["max_abs_err"]),
               f"admm_lanes ({r['shape']}) disagrees with its plain version")
         rows[Nt] = r
         del ctx, warm
         torch.cuda.empty_cache()
-    check(rows[40]["design"] == "device" and rows[38]["design"] == "shared",
-          f"ADMM designs at Nt=38/40: {rows[38]['design']}, {rows[40]['design']}")
+    check(all(r["design"] == "cluster" for r in rows.values()),
+          f"ADMM designs at Nt={C2_HORIZONS}: {[r['design'] for r in rows.values()]}")
     return rows
 
 
 def drive_port_banks(device, card: str, check) -> dict:
-    """Section 7; returns the new kernel row (the device-memory ADMM design)."""
+    """Section 7; returns the ADMM kernel row of the cluster design at Nt=40."""
     from ft_mpc_torch.geometry.scenario import build_randomized_bank
     from ft_mpc_torch.ops.dynamics import BodyParams
 
@@ -1529,7 +1720,7 @@ def drive_port_banks(device, card: str, check) -> dict:
 
     c2 = c2_horizons(device, check, census.scenarios)
     row = dict(c2[40])
-    row["name"] = "admm_lanes (K^-1 in device memory)"
+    row["name"] = "admm_lanes (cluster design, Nt=40)"
     return row
 
 
@@ -2324,12 +2515,99 @@ def drive_sharding(device, card: str, check, main_p50: float) -> None:
     launches = read_counters()
     log(f"9d: dryrun_multichip(2, cuda) in {time.perf_counter() - t0:.1f} s: {dr}; "
         f"launches {launches}, ADMM by design {admm_lanes.launches_by_design} (the boxed "
-        "leg's T=216 runs the shared-memory design)")
+        "leg's T=216 runs the cluster design)")
     check(all(launches[k] > 0 for k in CONDENSED_KERNELS),
           f"9d: a kernel of the condensed path never launched: {launches}")
 
     with tempfile.TemporaryDirectory() as d:
         planar_phase(device, card, check, Path(d))
+
+
+# ---------------------------------------------------------------------------
+# section 10: the condensed step with the state box and rate rows
+# ---------------------------------------------------------------------------
+
+
+def drive_boxed(device, card: str, check) -> dict:
+    """Section 10: section 2's condensed configuration at B=2048 with
+    `box_weights` (T=596), BOX_WARMUP + BOX_STEPS chained steps with the
+    counters zeroed before and read after; launches 3 / 5 / 1 a step with
+    every ADMM launch in the cluster design; the ADMM kernel held against its
+    plain version on the path's last QP (60 iterations) and on its worst 256
+    rows (the cleanup's 600 iterations), each timed beside its bound; the
+    allocation kernel on the path's wrenches; one whole step on BOX_SMALL
+    rows three ways (BOX_STATES_NOTE).  Returns the cluster design's kernel
+    row at T=596."""
+    from ft_mpc_torch.solvers.lanes_qp import admm_plan
+
+    ctx = Ctx(device, torch.float32, BATCH, box=True)
+    res, warm, out = drive_main_path(ctx, BOX_WARMUP, BOX_STEPS)
+    res["box_excess"] = box_excess(out.warm.X)
+    F, T = ctx.bank.hull_A.shape[1], out.warm.y_term.shape[1]
+    plan = admm_plan(HORIZON, F, T)
+    log("10, boxed path: " + json.dumps({**res, "admm_plan": plan}))
+    log(f"10, boxed path (B={BATCH}, Nt={HORIZON}, T={T}, {BOX_WARMUP}+{BOX_STEPS} steps): "
+        f"p50 {res['p50_ms']:.3f} ms, p99 {res['p99_ms']:.3f} ms, "
+        f"{res['solves_per_s']:.1f} solves/s, max_r_prim {res['max_r_prim']:.3e}, "
+        f"max_term_gap {res['max_term_gap']:.5f}, largest planned velocity beyond the "
+        f"{BOX_V} m/s box {res['box_excess']:.3e} m/s (none gated); ADMM {plan['design']} "
+        f"design, {plan['cluster']} blocks a scenario, {plan['smem_bytes']} B a block, "
+        f"{plan['max_active_clusters']} clusters at once; card: {card}")
+    check(res["finite"], "10: non-finite outputs")
+    check(res["u_shape"] == (BATCH, 16), f"10: u_phys shape {res['u_shape']}")
+    check(T == 596, f"10: {T} dense rows, expected 64 + 2*13*14 + 2*6*14 = 596")
+    n = BOX_WARMUP + BOX_STEPS
+    want = {k: m * n + (k == "condense_lanes") for k, m in LOOP_LAUNCHES.items()}
+    want.update(riccati_bwd_lanes=0, riccati_fwd_lanes=0)
+    check(res["launches"] == want, f"10: launches {res['launches']}, expected {want} "
+          "(3 / 5 / 1 a step and the warm start's condensing)")
+    by = res["admm_launches_by_design"]
+    check(by["cluster"] == 5 * n and sum(by.values()) == 5 * n,
+          f"10: ADMM launches by design {by}, expected all {5 * n} in 'cluster'")
+
+    c = ctx.cfg
+    K = min(c.cleanup_k, BATCH)
+    krows = [check_admm(ctx, admm_inputs(ctx, warm, ctx.weights), c.admm.iters,
+                        "boxed path T=596", reps=3),
+             check_admm(ctx, admm_inputs(ctx, warm, ctx.weights,
+                                         rows=torch.topk(out.info.r_prim, K).indices),
+                        c.cleanup_iters, f"boxed cleanup K={K}", reps=3)]
+    for r in krows:
+        r["design"], r["cluster"] = plan["design"], plan["cluster"]
+        log("kernel: " + json.dumps(with_share(r)))
+        check(r["max_rel_err"] <= r["tol_rel"] and np.isfinite(r["max_abs_err"]),
+              f"admm_lanes ({r['shape']}) disagrees with its plain version")
+    hold_alloc_main(ctx, out, "boxed", check)
+
+    # the whole step, three ways: the kernels against their plain versions on
+    # the card and the card against the CPU port from the path's own states,
+    # the card against the CPU port near the terminal sets (as section 2)
+    path_x0 = ctx.x0[:BOX_SMALL].cpu().numpy()
+    for label, x0, plain in (
+            ("the path's states, kernels vs their plain versions on the card", path_x0, True),
+            ("the path's states, card vs CPU port", path_x0, False),
+            ("states near the terminal sets, card vs CPU port", gentle_x0(BOX_SMALL), False)):
+        step = card_vs_cpu(device, x0, box=True, plain_on_card=plain, decisions=True,
+                           f64=not plain)
+        log(f"10, whole boxed step, {label} ({step['rows']} rows, float32): max "
+            f"|dwrench| {step['wrench_err']:.3e} on every row, {step['wrench_err_kept']:.3e} "
+            f"on the rows whose decisions agreed; max |du_phys| {step['u_err_kept']:.3e} "
+            f"there on the same allocation branches (tol {TOL_STEP_U}); rows whose ADMM "
+            f"rho freeze or step length went differently {step['split_rows']}, "
+            f"{step['branch_rows']} on an allocation branch, {step['off_rows']} on a "
+            f"threshold in all; rows beyond the tolerance {step['rows_beyond_tol']}; "
+            f"velocity beyond the box {step['box_excess_card_cpu']} m/s; max |dwrench| "
+            f"from the CPU port in float64 {step.get('wrench_err_vs_f64', '-')}")
+        log("10, " + label + ": " + json.dumps(step))
+        check(step["finite"], f"10: card step is not finite ({label})")
+        check(step["wrench_err_kept"] <= TOL_STEP_U and step["u_err_kept"] <= TOL_STEP_U
+              and step["off_rows"] <= step["rows"] // 4,
+              f"10: boxed card step differs ({label}): {step}")
+    log("10: " + BOX_STATES_NOTE)
+    row = dict(krows[0])
+    row["name"] = "admm_lanes (cluster design, T=596)"
+    row["launches"] = by["cluster"]
+    return row
 
 
 def main(argv=None) -> int:
@@ -2350,6 +2628,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(REPO))
     import ft_mpc_torch
 
+    t_start = time.perf_counter()
     ft_mpc_torch.pin_fp32_matmuls()
     device = torch.device("cuda", 0)
     card = card_line()
@@ -2504,6 +2783,11 @@ def main(argv=None) -> int:
     drive_slice_api(device, card, check)
     torch.cuda.empty_cache()
     drive_sharding(device, card, check, main_res["p50_ms"])
+    torch.cuda.empty_cache()
+    t_box = time.perf_counter()
+    rows.append(drive_boxed(device, card, check))
+    log(f"section 10 in {time.perf_counter() - t_box:.1f} s; the script in "
+        f"{time.perf_counter() - t_start:.1f} s")
     if args.profile:
         args.profile.parent.mkdir(parents=True, exist_ok=True)
         args.profile.write_text("\n".join(profiles))

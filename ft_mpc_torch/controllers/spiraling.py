@@ -34,6 +34,7 @@ from __future__ import annotations
 from functools import partial
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
@@ -117,7 +118,14 @@ class MPCWeights(NamedTuple):
     def from_diagonals(cls, q, r, x_lb=None, x_ub=None, du_max=None,
                        dtype: torch.dtype = torch.float32, device=None) -> "MPCWeights":
         dev = resolve_device(device)
-        t = lambda v: torch.as_tensor(v, dtype=dtype, device=dev)
+
+        def t(v):
+            # sequences go through numpy, as in the JAX package: YAML reads
+            # "1e8" (no dot) as a string, which numpy converts and torch refuses
+            if not isinstance(v, torch.Tensor):
+                v = np.asarray(v, dtype=np.float64)
+            return torch.as_tensor(v, dtype=dtype, device=dev)
+
         opt = lambda v: None if v is None else t(v)
         return cls(Q=torch.diag(t(q)), R=torch.diag(t(r)),
                    x_lb=opt(x_lb), x_ub=opt(x_ub), du_max=opt(du_max))

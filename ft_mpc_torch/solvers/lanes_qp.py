@@ -184,19 +184,38 @@ def _admm_cuda(Kinv, hull_A, h_hull, G_term, h_term, g, x0, zh0, zt0, yh0, yt0,
     return tuple(outs)
 
 
-ADMM_DESIGNS = ("registers", "shared", "device")
+ADMM_DESIGNS = ("registers", "cluster", "device")
 
 
 def admm_design(Nt: int, F: int, T: int) -> str:
     """Which design of `csrc/admm.cu` admm_f32 runs at these sizes:
     'registers' (K^-1 and G_term in registers: Nt <= 16, F <= 32, T <= 64),
-    'shared' (K^-1 in shared memory, Nt <= 38 at F=32, T=64) or 'device'
-    (K^-1 and G_term read from device memory).  Asks the built library."""
+    'cluster' (K^-1, G_term and the hull state in the shared memory of a
+    cluster of 1, 2, 4 or 8 blocks: Nt <= 85 at F=32, T=64, T <= 4291 at
+    Nt=15) or 'device' (K^-1 and G_term read from device memory).  Asks the
+    built library."""
     fn = kernels.function("admm", "admm_design", [ctypes.c_int] * 3)
     code = fn(int(Nt), int(F), int(T))
     if code < 0:
         raise ValueError(f"admm_lanes: no kernel design takes Nt={Nt}, F={F}, T={T}")
     return ADMM_DESIGNS[code]
+
+
+def admm_plan(Nt: int, F: int, T: int) -> dict:
+    """admm_f32's plan at these sizes, from the built library: the design,
+    the blocks a scenario takes (`cluster`, 1 outside the cluster design),
+    a block's dynamic shared memory in bytes, the cluster design's lanes per
+    row (`group`), float4 per lane (`chunks`) and `threads` a block, and
+    cudaOccupancyMaxActiveClusters of its launch (`max_active_clusters`)."""
+    fn = kernels.function("admm", "admm_plan", [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    out = (ctypes.c_int * 7)()
+    code = fn(int(Nt), int(F), int(T), out)
+    if code < 0:
+        raise ValueError(f"admm_lanes: no kernel design takes Nt={Nt}, F={F}, T={T}")
+    kernels.check("admm", "admm_plan", out[6])
+    return {"design": ADMM_DESIGNS[code], "cluster": out[0], "smem_bytes": out[1],
+            "group": out[2], "chunks": out[3], "threads": out[4],
+            "max_active_clusters": out[5]}
 
 
 def admm_lanes(Kinv, hull_A, h_hull, G_term, h_term, g, x0, zh0, zt0, yh0, yt0,

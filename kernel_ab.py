@@ -12,8 +12,10 @@ through the same ctypes code on the same inputs, the condensed main path's
 (`chip_smoke.py`: B=2048, Nt=15, after init and 12 chained steps):
 - condense on the stage jacobians of the final warm start;
 - ADMM on the QP of the final warm start at T=64 (60 iterations), on the
-  worst 256 rows as the cleanup runs it (600 iterations), and with the
-  state-box and rate rows (T=596, 60 iterations);
+  worst 256 rows as the cleanup runs it (600 iterations), with the
+  state-box and rate rows (T=596, 60 iterations) and on its worst 256 rows
+  (T=596, 600 iterations); and at B=256, T=64, 60 iterations on the QP of
+  the condensed path at horizons 20, 38 and 40 after 2 chained steps;
 - allocation on the final step's wrenches (B=2048, F=32, 60 FISTA and 40
   ADMM iterations), and on their first 512 rows (the stagewise path's batch).
 Each case is timed old, new, new, old (CUDA events, median of 3 rounds of
@@ -163,7 +165,7 @@ def main(argv=None) -> int:
     from ft_mpc_torch import kernels
     from ft_mpc_torch.solvers.lanes_alloc import alloc_plain
     from ft_mpc_torch.solvers.lanes_condense import condense_plain
-    from ft_mpc_torch.solvers.lanes_qp import admm_plain
+    from ft_mpc_torch.solvers.lanes_qp import admm_plain, admm_plan
 
     ft_mpc_torch.pin_fp32_matmuls()
     device = torch.device("cuda", 0)
@@ -201,11 +203,18 @@ def main(argv=None) -> int:
                                          device=device)
     c = ctx.cfg.admm
     worst = torch.topk(out.info.r_prim, 256).indices
-    for label, weights, rows, iters, reps in (
-            ("main path T=64", ctx.weights, None, c.iters, 10),
-            ("cleanup K=256", ctx.weights, worst, ctx.cfg.cleanup_iters, 3),
-            ("box and rate rows T>64", boxed, None, c.iters, 3)):
-        args = cs.admm_inputs(ctx, warm, weights, rows=rows)
+    cases = [(label, cs.admm_inputs(ctx, warm, weights, rows=rows), iters, reps)
+             for label, weights, rows, iters, reps in (
+                 ("main path T=64", ctx.weights, None, c.iters, 10),
+                 ("cleanup K=256", ctx.weights, worst, ctx.cfg.cleanup_iters, 3),
+                 ("box and rate rows T>64", boxed, None, c.iters, 3),
+                 ("box and rate rows, cleanup K=256", boxed, worst, ctx.cfg.cleanup_iters, 3))]
+    for Nt in cs.C2_HORIZONS:
+        hctx = cs.Ctx(device, torch.float32, cs.C2_BATCH, horizon=Nt)
+        _, hwarm, _ = cs.drive_main_path(hctx, 0, cs.C2_STEPS)
+        cases.append((f"horizon {Nt}", cs.admm_inputs(hctx, hwarm, hctx.weights), c.iters, 5))
+        del hctx, hwarm
+    for label, args, iters, reps in cases:
         hyper = (c.sigma, c.alpha, iters, c.elastic_y_max)
         ref = admm_plain(*args, *hyper)
         rel = [cs.rel_err(call_admm(fn, args, *hyper), ref)[1]
@@ -214,6 +223,7 @@ def main(argv=None) -> int:
         T = args[4].shape[1]
         b_ms, b_by = cs.bound_ms(cs.nbytes(*args, *ref), cs.admm_flops(B, Nt, F, T, iters))
         res = {"kernel": "admm", "shape": f"{label}: B={B} Nt={Nt} F={F} T={T} iters={iters}",
+               "plan": admm_plan(Nt, F, T),
                "bound_ms": b_ms, "bound_by": b_by, "old_max_rel_err": rel[0],
                "new_max_rel_err": rel[1],
                **in_turns(lambda: call_admm(old["admm"], args, *hyper),
@@ -221,6 +231,8 @@ def main(argv=None) -> int:
         res["old_us_per_iter"] = 1e3 * res["old_ms"] / iters
         res["new_us_per_iter"] = 1e3 * res["new_ms"] / iters
         results.append(res)
+        del args, ref
+    del cases
 
     full = cs.alloc_args(ctx, out.wrench)
     iters = sum(cs.ALLOC_HYPER[:2])

@@ -111,26 +111,36 @@ def admm_case(gen, T, device, B=260, Nt=15, F=32, masked=False):
             zeros(qp.h_hull), zeros(qp.h_term), rho]
 
 
-@pytest.mark.parametrize("B,Nt,F,T,y_max,design", [
-    (260, 15, 32, 64, 1e3, "registers"),  # the main path's shape: 8 warps
-    (256, 15, 32, 64, 0.0, "registers"),  # the cleanup's batch, hinge prox off
-    (3, 15, 20, 37, 1e3, "registers"),    # masked facets, a partly filled row tile
-    (1, 15, 20, 1, 0.0, "registers"),
-    (3, 1, 32, 64, 1e3, "registers"),     # one stage: one warp, one live column of six
-    (1, 1, 20, 37, 0.0, "registers"),
-    (260, 15, 32, 596, 1e3, "shared"),    # state box and rate rows: K^-1 in shared
-    (3, 15, 20, 596, 0.0, "shared"),      # memory, G_term read from device memory
-    (256, 20, 32, 64, 1e3, "shared"),     # longer horizons: K^-1 and G_term in
-    (256, 38, 32, 64, 0.0, "shared"),     # shared memory up to Nt = 38,
-    (256, 40, 32, 64, 1e3, "device"),     # then both read from device memory
-    (64, 60, 32, 64, 1e3, "device"),
+@pytest.mark.parametrize("B,Nt,F,T,y_max,design,cluster", [
+    (260, 15, 32, 64, 1e3, "registers", 1),  # the main path's shape: 8 warps
+    (256, 15, 32, 64, 0.0, "registers", 1),  # the cleanup's batch, hinge prox off
+    (3, 15, 20, 37, 1e3, "registers", 1),    # masked facets, a partly filled row tile
+    (1, 15, 20, 1, 0.0, "registers", 1),
+    (3, 1, 32, 64, 1e3, "registers", 1),     # one stage: one warp, one live column of six
+    (1, 1, 20, 37, 0.0, "registers", 1),
+    (260, 15, 32, 232, 1e3, "cluster", 1),   # rate rows alone: one block holds it all
+    (64, 15, 32, 428, 0.0, "cluster", 1),    # state box alone
+    (260, 15, 32, 596, 1e3, "cluster", 2),   # state box and rate rows: two blocks
+    (3, 15, 20, 596, 0.0, "cluster", 2),     # masked facets
+    (256, 20, 32, 64, 1e3, "cluster", 1),    # longer horizons at T=64
+    (256, 38, 32, 64, 0.0, "cluster", 2),
+    (256, 40, 32, 64, 1e3, "cluster", 2),
+    (64, 60, 32, 64, 1e3, "cluster", 4),
+    (16, 80, 32, 64, 0.0, "cluster", 8),
+    (4, 2, 20, 2000, 0.0, "cluster", 4),     # two blocks own no stage, only rows
+    (8, 90, 32, 64, 1e3, "device", 1),       # beyond the largest cluster
 ])
-def test_admm_kernel_matches_plain(dev, gen, B, Nt, F, T, y_max, design):
+def test_admm_kernel_matches_plain(dev, gen, B, Nt, F, T, y_max, design, cluster):
     """admm_f32 keeps K^-1 and G_term in registers for Nt <= 16, F <= 32,
-    T <= 64, K^-1 in shared memory where it fits, and reads K^-1 and G_term
-    from device memory beyond (Nt >= 39 at F=32, T=64)."""
+    T <= 64, in the shared memory of a cluster of 1, 2, 4 or 8 blocks where
+    they fit (Nt <= 85 at F=32, T=64), and reads them from device memory
+    beyond."""
     args = admm_case(gen, T, dev, B=B, Nt=Nt, F=F, masked=F < 32)
-    assert lq.admm_design(Nt, F, T) == design
+    plan = lq.admm_plan(Nt, F, T)
+    assert lq.admm_design(Nt, F, T) == design == plan["design"]
+    assert plan["cluster"] == cluster
+    if design == "cluster":
+        assert plan["max_active_clusters"] > 0
     n0 = lq.admm_lanes.launches
     d0 = lq.admm_lanes.launches_by_design[design]
     out = lq.admm_lanes(*args, 1e-6, 1.6, 60, y_max)
@@ -206,35 +216,42 @@ def test_alloc_kernel_matches_plain(dev, gen, B, facets, iters):
     np.testing.assert_allclose(np_(out.u_phys), np_(ref.u_phys), atol=2e-3)
 
 
-def test_control_step_card_matches_cpu(dev):
-    """One warm-started step on 16 rows: card (kernels) vs CPU (plain)."""
-    B, Nt = 16, 8
+def _step_card_vs_cpu(dev, B, Nt, box=False, cleanup_k=4):
+    """One warm-started condensed step on B rows, card (kernels) vs CPU
+    (plain); with `box` the reactive.yaml weights of
+    tests/test_config_bounds.py (0.5 m/s velocity box, du_max rate rows).
+    Returns (card output, CPU output, ADMM launches by design on the card)."""
     cfg = sp.MPCConfig(
-        horizon=Nt, sqp_iters=2, newton_iters=3, cleanup_iters=100, cleanup_k=4,
+        horizon=Nt, sqp_iters=2, newton_iters=3, cleanup_iters=100, cleanup_k=cleanup_k,
         admm=StructuredADMMConfig(iters=60, phases=1, rho=50.0, adapt_clip=1.5),
     )
-    traj = generate_trajectory("hover", 0.1, 5)
+    traj = generate_trajectory("hover", 0.1, max(5, (Nt + 2) * 0.1))
     xr, ur = prepare_center_trajectory(traj, np.array([0.0, 0.0, 0.6]), 16.8, 0.1, Nt + 1)
     rng = np.random.default_rng(0)
     x0 = np.zeros((B, 13))
     x0[:, 0:3] = rng.uniform(-0.4, 0.4, (B, 3))
     q = rng.standard_normal((B, 4))
     x0[:, 6:10] = q / np.linalg.norm(q, axis=1, keepdims=True)
-    outs = []
+    x_ub = np.full(13, 1e8)
+    x_ub[3:6] = 0.5
+    bounds = dict(x_lb=-x_ub, x_ub=x_ub, du_max=[2.0, 2.0, 2.0, 1.0, 1.0, 1.0]) if box else {}
+    outs, by_design = [], None
     for device in (dev, torch.device("cpu")):
         t = lambda a: torch.as_tensor(a, dtype=F32, device=device)
         bank = _bank(B, device)
         params = BodyParams.default(0.1, device=device)
         w = sp.MPCWeights.from_diagonals([1] * 6 + [2] * 3, [0.1] * 3 + [0.01] * 3,
-                                         device=device)
+                                         device=device, **bounds)
         x0_t, x_ref, u_ref = t(x0), t(xr[: Nt + 1]), t(ur[: Nt + 1])
         c0 = sp.robot_to_center(bank.r, x0_t)
         warm = sp.init_warmstart_batch(params, bank, w, cfg, c0, x_ref, u_ref)
         launches = lq.admm_lanes.launches
+        before = dict(lq.admm_lanes.launches_by_design)
         outs.append(sp.get_control_batch(params, bank, w, cfg, x0_t, x_ref, u_ref, warm))
         if device.type == "cuda":
             torch.cuda.synchronize()
             assert lq.admm_lanes.launches > launches
+            by_design = {k: v - before[k] for k, v in lq.admm_lanes.launches_by_design.items()}
     assert torch.isfinite(outs[0].u_phys).all()
     np.testing.assert_allclose(np_(outs[0].wrench), np_(outs[1].wrench), atol=2e-2)
     # u_phys where both allocations took the same branches: a wrench on a
@@ -243,6 +260,24 @@ def test_control_step_card_matches_cpu(dev):
     same = (branch(outs[0]) == branch(outs[1])).all(dim=1).numpy()
     assert same.sum() >= B - B // 8
     np.testing.assert_allclose(np_(outs[0].u_phys)[same], np_(outs[1].u_phys)[same], atol=2e-2)
+    return outs[0], outs[1], by_design
+
+
+def test_control_step_card_matches_cpu(dev):
+    """One warm-started step on 16 rows: card (kernels) vs CPU (plain)."""
+    _step_card_vs_cpu(dev, 16, 8)
+
+
+def test_boxed_control_step_card_matches_cpu(dev):
+    """The condensed step with the state box and rate rows at Nt=15 (T=596)
+    on 32 rows: every ADMM launch in the cluster design, card vs CPU, and
+    the planned stage velocities inside the 0.5 m/s box on both."""
+    card, cpu, by_design = _step_card_vs_cpu(dev, 32, 15, box=True, cleanup_k=8)
+    # 2 SQP iterations and 2 cleanup phases
+    assert by_design["cluster"] == 4 and sum(by_design.values()) == 4
+    for out in (card, cpu):
+        v = out.warm.X[:, 1:-1, 3:6].abs().amax().item()
+        assert v <= 0.5 + 1e-3, v
 
 
 def riccati_case(gen, B, Nt, device):
