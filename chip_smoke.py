@@ -26,12 +26,17 @@
    `benchmarks/envelope.py`: B=512 scenarios, horizon 240, 2 SQP iterations,
    60 Riccati-in-ADMM iterations, worst-64 cleanup at 300x2, SW_WARMUP +
    SW_STEPS = 3 + 12 chained steps, with the launch counters zeroed just
-   before and read just after; then holds the two Riccati sweep kernels,
-   each against its plain half, on the factorization and linear terms that
-   path last gave them (B=512 and the cleanup's B=64), the allocation
-   kernel on that path's own wrenches (B=512, held and timed), and
-   compares two chained stagewise steps on the card with the CPU run at
-   B=32, horizon 60.  The path's max_r_prim and max_term_gap are gated.
+   before and read just after: one backward and one forward sweep a
+   re-solve (720 a step) in one launch, one preparation a phase (4 a
+   step), printed a step and a re-solve and by design; then holds the
+   Riccati re-solve at the plan `riccati_plan` gives (each sweep against
+   its plain half, the pair against `lqr_resolve`, the preparation against
+   its plain version) on the factorization and linear terms that path last
+   gave it (B=512, the cleanup's B=64 and its first 8 rows, the
+   long-horizon envelope's cleanup batch), the allocation kernel on that path's own
+   wrenches (B=512, held and timed), and compares two chained stagewise
+   steps on the card with the CPU run at B=32, horizon 60.  The path's
+   max_r_prim and max_term_gap are gated.
 6. Drives the closed loop (`ft_mpc_torch/sim/env.py`), each run with the
    launch counters zeroed just before and read just after:
    - `batched_rollout_lanes` at the condensed path's configuration, B=2048,
@@ -214,6 +219,7 @@ SW_SMALL_STEPS = 2  # chained, so the carried warm start, duals and rho are held
 # stops converging (a wrong rho rule, duals dropped between steps) reads far
 # above; benchmarks/long_horizon.py reports the same number and gates nothing.
 SW_R_PRIM_GATE = 1e-2
+RICCATI_SMALL = 8  # the sweeps' batch in the long-horizon envelope's B=64 cleanup
 # The closed loop (ft_mpc_torch/sim/env.py)
 LOOP_STEPS = 50  # batched_rollout_lanes at B=BATCH
 LOOP_SMALL = (32, 3)  # (B, steps) of the same-state card-vs-CPU closed loop
@@ -269,7 +275,7 @@ BOX_STATES_NOTE = (
     "cleanup), and the line search picks one of three step lengths; such rows are "
     "counted, as the allocation's branches are, and the others held to TOL_STEP_U")
 CONDENSED_KERNELS = ("condense_lanes", "admm_lanes", "allocate_thrusters_lanes")
-STAGEWISE_KERNELS = ("riccati_bwd_lanes", "riccati_fwd_lanes",
+STAGEWISE_KERNELS = ("riccati_bwd_lanes", "riccati_fwd_lanes", "riccati_prepare_lanes",
                      "allocate_thrusters_lanes")
 
 
@@ -481,6 +487,7 @@ def counters():
         "allocate_thrusters_lanes": lanes_alloc.allocate_thrusters_lanes,
         "riccati_bwd_lanes": lanes_riccati.riccati_bwd_lanes,
         "riccati_fwd_lanes": lanes_riccati.riccati_fwd_lanes,
+        "riccati_prepare_lanes": lanes_riccati.riccati_prepare_lanes,
     }
 
 
@@ -509,6 +516,7 @@ def drive_main_path(ctx: Ctx, warmup: int = WARMUP, steps: int = STEPS):
     """init + warmup + steps chained steps; launch counts zeroed before, read
     after."""
     from ft_mpc_torch.solvers.lanes_qp import admm_lanes, newton_kinv
+    from ft_mpc_torch.solvers.lanes_riccati import riccati_split_lanes
 
     zero_counters()
     newton_kinv.rescues = 0
@@ -530,6 +538,7 @@ def drive_main_path(ctx: Ctx, warmup: int = WARMUP, steps: int = STEPS):
         warm = out.warm
     launches = read_counters()
     by_design = dict(admm_lanes.launches_by_design)
+    riccati_by_design = dict(riccati_split_lanes.launches_by_design)
     rescues = newton_kinv.rescues
     samples = np.asarray(samples)
     windows = samples[: len(samples) // 10 * 10].reshape(-1, 10).mean(axis=1)
@@ -546,6 +555,7 @@ def drive_main_path(ctx: Ctx, warmup: int = WARMUP, steps: int = STEPS):
         "launches": launches,
         "launches_per_step": {k: v / (warmup + steps) for k, v in launches.items()},
         "admm_launches_by_design": by_design,
+        "riccati_launches_by_design": riccati_by_design,
         "newton_rescues": rescues,
         "slowest_steps_ms": {int(i): float(samples[i])
                              for i in np.argsort(samples)[::-1][:5]},
@@ -875,16 +885,19 @@ def with_share(row: dict) -> dict:
 def capture_riccati(ctx: Ctx, warm) -> dict:
     """One more stagewise step with the solver's `lqr_resolve_lanes` wrapped,
     keeping the arguments of the last call at each batch size:
-    {B: (fact, q, r, qN, x0)}, the path's own factorization and linear terms,
-    late in an ADMM run.  Runs after the counted window; the solver's
-    reference is put back."""
+    {B: (fact, q, r, qN, x0)}, the path's own factorization (float32, as
+    its phase's `prepare_resolve` holds it) and linear terms, late in an
+    ADMM run.  Runs after the counted window; the solver's reference is put
+    back."""
     from ft_mpc_torch.solvers import mpc_qp_stagewise as sw
+    from ft_mpc_torch.solvers.lanes_riccati import RiccatiPrep
 
     seen = {}
     real = sw.lqr_resolve_lanes
 
     def recording(fact, *lin):
-        seen[fact.F.shape[0]] = (fact, *lin)
+        f = fact.fact if isinstance(fact, RiccatiPrep) else fact
+        seen[f.F.shape[0]] = (f, *lin)
         return real(fact, *lin)
 
     sw.lqr_resolve_lanes = recording
@@ -896,27 +909,63 @@ def capture_riccati(ctx: Ctx, warm) -> dict:
     return seen
 
 
+# per scenario-stage: flops of the recursions as written
+RICCATI_BWD_FLOPS = 13 + 2 * 78 + 6 + 2 * 36 + 2 * 169 + 2 * 78 + 2 * 13
+RICCATI_FWD_FLOPS = 2 * 78 + 6 + 2 * 78 + 2 * 169 + 2 * 13
+# the preparation: F'PC and B'PC, and a chunk's product a stage (C > 1)
+RICCATI_PREP_FLOPS = 2 * 169 + 2 * 78
+RICCATI_PSI_FLOPS = 2 * 13 ** 3
+
+
+def riccati_bounds(F, Bm, c, K, Qi, PC, q, r, qN, x0) -> dict:
+    """(bound ms, bound by) of the backward sweep, the forward sweep and the
+    pair: each input read once, each output written once."""
+    B, Nt = F.shape[:2]
+    ks_b = 4 * B * Nt * 6
+    xu_b = 4 * (B * (Nt + 1) * 13 + B * Nt * 6)
+    return {
+        "bwd": bound_ms(nbytes(F, Bm, K, Qi, PC, q, r, qN) + ks_b, float(B) * Nt * RICCATI_BWD_FLOPS),
+        "fwd": bound_ms(nbytes(F, Bm, c, K, x0) + ks_b + xu_b, float(B) * Nt * RICCATI_FWD_FLOPS),
+        "pair": bound_ms(nbytes(F, Bm, c, K, Qi, PC, q, r, qN, x0) + xu_b,
+                         float(B) * Nt * (RICCATI_BWD_FLOPS + RICCATI_FWD_FLOPS)),
+    }
+
+
 def check_riccati(ctx: Ctx, fact, q, r, qN, x0, label: str, reps: int = 20) -> list[dict]:
-    """Kernels 4 and 5, each against its plain half on the same inputs, the
-    pair against `lqr_resolve`, and all three against the plain sweeps in
-    float64.  Also with a seeded non-zero qN and x0 (the path passes x0 = 0)."""
+    """Kernels 4 and 5 at the plan `riccati_plan` gives this shape: the
+    backward and forward sweeps alone, each against its plain half on the
+    same inputs, the pair through `lqr_resolve_lanes` against
+    `lqr_resolve`, all against the plain sweeps in float64; also with a
+    seeded non-zero qN and x0 (the path passes x0 = 0).  The preparation
+    against its plain version.  Each row carries the pair's time (what a
+    re-solve costs) beside its sweep's."""
     from ft_mpc_torch.solvers.lanes_riccati import (
         lqr_resolve_lanes,
-        riccati_bwd_lanes,
-        riccati_fwd_lanes,
+        prepared,
+        riccati_plan,
+        riccati_prepare_lanes,
+        riccati_prepare_plain,
+        riccati_split_lanes,
     )
     from ft_mpc_torch.solvers.riccati import (
+        LQRFactorization,
         lqr_resolve,
         resolve_bwd_plain,
         resolve_fwd_plain,
     )
 
-    f32 = lambda t: t.float().contiguous()  # as lqr_resolve_lanes hands them on
-    F, Bm, c, K, Qi, PC = (f32(t) for t in (fact.F, fact.B, fact.c, fact.K,
-                                            fact.Quu_inv, fact.PC))
+    f32 = lambda t: t.float().contiguous()  # as prepare_resolve hands them on
+    f = LQRFactorization(*(f32(t) for t in fact))
+    F, Bm, c, K, Qi, PC = f.F, f.B, f.c, f.K, f.Quu_inv, f.PC
     q, r, qN, x0 = (f32(t) for t in (q, r, qN, x0))
-    contiguous = all(t.is_contiguous() for t in fact)
     B, Nt = F.shape[:2]
+    plan = riccati_plan(B, Nt)
+    prep = prepared(f, plan["chunk"])
+    rec_p, psi_p = riccati_prepare_plain(f, plan["chunk"])
+    rec_err = rel_err([prep.rec] + ([] if prep.psi is None else [prep.psi]),
+                      [rec_p] + ([] if psi_p is None else [psi_p]))
+    bwd_k = lambda qN_i, x0_i: riccati_split_lanes(prep, q, r, qN_i, x0_i, parts=1)
+    fwd_k = lambda ks, qN_i, x0_i: riccati_split_lanes(prep, q, r, qN_i, x0_i, parts=2, ks=ks)
     rng = np.random.default_rng(3)
     rnd = lambda t: torch.as_tensor(rng.standard_normal(tuple(t.shape)), dtype=t.dtype,
                                     device=t.device)
@@ -931,27 +980,26 @@ def check_riccati(ctx: Ctx, fact, q, r, qN, x0, label: str, reps: int = 20) -> l
 
     for qN_i, x0_i in ((qN, x0), (rnd(qN), rnd(x0))):
         b_in = (F, Bm, K, Qi, PC, q, r, qN_i)
-        ks_k = riccati_bwd_lanes(*b_in)
         ks_p = resolve_bwd_plain(*b_in)
-        hold("bwd", [ks_k], [ks_p], [resolve_bwd_plain(*dbl(b_in))])
+        hold("bwd", [bwd_k(qN_i, x0_i)], [ks_p], [resolve_bwd_plain(*dbl(b_in))])
         f_in = (F, Bm, c, K, ks_p, x0_i)
-        hold("fwd", riccati_fwd_lanes(*f_in), resolve_fwd_plain(*f_in),
+        hold("fwd", fwd_k(ks_p, qN_i, x0_i), resolve_fwd_plain(*f_in),
              resolve_fwd_plain(*dbl(f_in)))
     # the pair, through the wrapper, against the plain re-solve
-    pair = rel_err(lqr_resolve_lanes(fact, q, r, qN, x0), lqr_resolve(fact, q, r, qN, x0))
+    pair = rel_err(lqr_resolve_lanes(prep, q, r, qN, x0), lqr_resolve(f, q, r, qN, x0))
     sync(ctx.device)
 
+    ks_p = resolve_bwd_plain(F, Bm, K, Qi, PC, q, r, qN)
+    times = {"bwd": time_ms(lambda: bwd_k(qN, x0), reps, ctx.device, device_only=True),
+             "fwd": time_ms(lambda: fwd_k(ks_p, qN, x0), reps, ctx.device, device_only=True),
+             "pair": time_ms(lambda: riccati_split_lanes(prep, q, r, qN, x0), reps, ctx.device,
+                             device_only=True)}
+    bounds = riccati_bounds(F, Bm, c, K, Qi, PC, q, r, qN, x0)
+    plains = {"bwd": time_ms(lambda: resolve_bwd_plain(F, Bm, K, Qi, PC, q, r, qN), 1, ctx.device),
+              "fwd": time_ms(lambda: resolve_fwd_plain(F, Bm, c, K, ks_p, x0), 1, ctx.device)}
+    shape = f"{label}: B={B} Nt={Nt}"
     rows = []
-    b_in = (F, Bm, K, Qi, PC, q, r, qN)
-    f_in = (F, Bm, c, K, resolve_bwd_plain(*b_in), x0)
-    # per scenario-stage: floats written, and flops of the recursion as written
-    for key, name, line, kern, plain, ins, out_floats, flops in (
-        ("bwd", "riccati_bwd_lanes", 46, riccati_bwd_lanes, resolve_bwd_plain, b_in,
-         B * Nt * 6, 13 + 2 * 78 + 6 + 2 * 36 + 2 * 169 + 2 * 78 + 2 * 13),
-        ("fwd", "riccati_fwd_lanes", 64, riccati_fwd_lanes, resolve_fwd_plain, f_in,
-         B * (Nt + 1) * 13 + B * Nt * 6, 2 * 78 + 6 + 2 * 78 + 2 * 169 + 2 * 13),
-    ):
-        b_ms, b_by = bound_ms(nbytes(*ins) + 4 * out_floats, float(B) * Nt * flops)
+    for key, name, line in (("bwd", "riccati_bwd_lanes", 46), ("fwd", "riccati_fwd_lanes", 64)):
         e, rel, rel64, plain64 = res[key]
         rows.append({
             "name": name, "route": "cuda", "source": "ft_mpc_torch/csrc/riccati.cu",
@@ -959,12 +1007,30 @@ def check_riccati(ctx: Ctx, fact, q, r, qN, x0, label: str, reps: int = 20) -> l
             "max_abs_err": e, "max_rel_err": rel, "tol_rel": TOL_RICCATI,
             "rel_err_vs_f64": rel64, "plain_rel_err_vs_f64": plain64,
             "tol_rel_f64": TOL_RICCATI_F64, "pair_rel_err": pair[1],
-            "path_factorization_contiguous": contiguous,
-            "ms": time_ms(lambda: kern(*ins), reps, ctx.device, device_only=True),
-            "plain_ms": time_ms(lambda: plain(*ins), 1, ctx.device),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "shape": f"{label}: B={B} Nt={Nt}",
+            "design": plan["design"], "plan": plan,
+            "ms": times[key], "plain_ms": plains[key],
+            "bound_ms": bounds[key][0], "bound_by": bounds[key][1], "library_ms": None,
+            "pair_ms": times["pair"], "pair_bound_ms": bounds["pair"][0],
+            "shape": shape,
         })
+    C = plan["chunks"]
+    n_b = nbytes(F, Bm, K, Qi, PC, c) + nbytes(prep.rec) + (
+        0 if prep.psi is None else nbytes(prep.psi))
+    flops = float(B) * Nt * (RICCATI_PREP_FLOPS + (RICCATI_PSI_FLOPS if C > 1 else 0))
+    b_ms, b_by = bound_ms(n_b, flops)
+    rows.append({
+        "name": "riccati_prepare_lanes", "route": "cuda",
+        "source": "ft_mpc_torch/csrc/riccati.cu",
+        "replaces": "ft_mpc_tpu/solvers/lanes_riccati.py:46",
+        "note": "the per-phase part of kernels 4 and 5 (no TPU counterpart: the "
+                "Pallas sweeps read the factorization as it is)",
+        "max_abs_err": rec_err[0], "max_rel_err": rec_err[1], "tol_rel": TOL_RICCATI,
+        "design": plan["design"], "plan": plan,
+        "ms": time_ms(lambda: riccati_prepare_lanes(f, plan["chunk"]), reps, ctx.device,
+                      device_only=True),
+        "plain_ms": time_ms(lambda: riccati_prepare_plain(f, plan["chunk"]), 1, ctx.device),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "shape": shape,
+    })
     return rows
 
 
@@ -1189,10 +1255,12 @@ class StepRecorder:
 
 def zero_counters() -> None:
     from ft_mpc_torch.solvers.lanes_qp import admm_lanes
+    from ft_mpc_torch.solvers.lanes_riccati import riccati_split_lanes
 
     for fn in counters().values():
         fn.launches = 0
-    admm_lanes.launches_by_design = dict.fromkeys(admm_lanes.launches_by_design, 0)
+    for fn in (admm_lanes, riccati_split_lanes):
+        fn.launches_by_design = dict.fromkeys(fn.launches_by_design, 0)
 
 
 def read_counters() -> dict:
@@ -1498,7 +1566,7 @@ def drive_closed_loop(device, card: str, check, profiles: list | None = None) ->
     got = {k: res["launches"][k] for k in want}
     check(got == want, f"closed loop (lanes): launches {got}, expected {want} "
           "(3 / 5 / 1 a step and the warm start's condensing)")
-    check(res["launches"]["riccati_bwd_lanes"] == 0 and res["launches"]["riccati_fwd_lanes"] == 0,
+    check(all(res["launches"][k] == 0 for k in STAGEWISE_KERNELS[:3]),
           "closed loop (lanes): a stagewise kernel launched")
     last = SimpleNamespace(wrench=hist.wrench[:, -1])
     am = check_alloc_main(ctx, last)
@@ -1624,7 +1692,7 @@ def port_bank_path(device, label: str, check, bank, small_rows, params=None,
           f"{label}: a broken thruster commanded {res['max_broken_u']}")
     n = PORT_WARMUP + PORT_STEPS
     want = {k: m * n + (k == "condense_lanes") for k, m in LOOP_LAUNCHES.items()}
-    want.update(riccati_bwd_lanes=0, riccati_fwd_lanes=0)
+    want.update(riccati_bwd_lanes=0, riccati_fwd_lanes=0, riccati_prepare_lanes=0)
     check(res["launches"] == want, f"{label}: launches {res['launches']}, expected {want} "
           "(3 / 5 / 1 a step and the warm start's condensing)")
 
@@ -2132,7 +2200,7 @@ def sharded_steps(ctx: Ctx, mesh, warmup: int, steps: int):
     n = warmup + steps
     want = {k: m * n * mesh.size + (k == "condense_lanes") * mesh.size
             for k, m in LOOP_LAUNCHES.items()}
-    want.update(riccati_bwd_lanes=0, riccati_fwd_lanes=0)
+    want.update(riccati_bwd_lanes=0, riccati_fwd_lanes=0, riccati_prepare_lanes=0)
     res = {"shards": mesh.size, "B": len(ctx.bank.r), "steps": n,
            "p50_ms": float(np.percentile(samples, 50)),
            "p99_ms": float(np.percentile(samples, 99)),
@@ -2364,7 +2432,7 @@ def planar_phase(device, card: str, check, tmp: Path) -> list:
           f"planar bank: max_term_gap {res['max_term_gap']} > {GAP_GATE}")
     n = PORT_WARMUP + PORT_STEPS
     want = {k: m * n + (k == "condense_lanes") for k, m in LOOP_LAUNCHES.items()}
-    want.update(riccati_bwd_lanes=0, riccati_fwd_lanes=0)
+    want.update(riccati_bwd_lanes=0, riccati_fwd_lanes=0, riccati_prepare_lanes=0)
     check(res["launches"] == want, f"planar bank: launches {res['launches']}, expected {want}")
 
     rows = [check_condense(ctx, warm),
@@ -2558,7 +2626,7 @@ def drive_boxed(device, card: str, check) -> dict:
     check(T == 596, f"10: {T} dense rows, expected 64 + 2*13*14 + 2*6*14 = 596")
     n = BOX_WARMUP + BOX_STEPS
     want = {k: m * n + (k == "condense_lanes") for k, m in LOOP_LAUNCHES.items()}
-    want.update(riccati_bwd_lanes=0, riccati_fwd_lanes=0)
+    want.update(riccati_bwd_lanes=0, riccati_fwd_lanes=0, riccati_prepare_lanes=0)
     check(res["launches"] == want, f"10: launches {res['launches']}, expected {want} "
           "(3 / 5 / 1 a step and the warm start's condensing)")
     by = res["admm_launches_by_design"]
@@ -2608,6 +2676,103 @@ def drive_boxed(device, card: str, check) -> dict:
     row["name"] = "admm_lanes (cluster design, T=596)"
     row["launches"] = by["cluster"]
     return row
+
+
+def drive_stagewise(device, card: str, check, profiles: list | None = None) -> list:
+    """Section 5: the stagewise path, its Riccati sweeps and allocation
+    kernels held, two chained steps card vs CPU; returns the kernel rows of
+    the main run's line (the sweeps and their preparation at B=512 and at the
+    cleanup's B)."""
+    sw = Ctx(device, torch.float32, SW_BATCH, stagewise_horizon=SW_HORIZON)
+    sw_res, sw_warm, sw_out = drive_main_path(sw, SW_WARMUP, SW_STEPS)
+    log("stagewise path: " + json.dumps(sw_res))
+    log(f"stagewise path (B={SW_BATCH}, Nt={SW_HORIZON}): p50 {sw_res['p50_ms']:.3f} ms, "
+        f"p99 {sw_res['p99_ms']:.3f} ms, {sw_res['solves_per_s']:.1f} solves/s, "
+        f"max_r_prim {sw_res['max_r_prim']:.3e}, max_term_gap {sw_res['max_term_gap']:.3e}, "
+        f"launches per step {sw_res['launches_per_step']} (not gated on time); card: {card}")
+    check(sw_res["finite"], "stagewise path produced non-finite outputs")
+    check(sw_res["u_shape"] == (SW_BATCH, 16), f"stagewise u_phys shape {sw_res['u_shape']}")
+    check(sw_res["max_r_prim"] <= SW_R_PRIM_GATE,  # NaN fails the comparison too
+          f"stagewise max_r_prim {sw_res['max_r_prim']} > {SW_R_PRIM_GATE}")
+    check(sw_res["max_term_gap"] <= GAP_GATE,
+          f"stagewise max_term_gap {sw_res['max_term_gap']} > {GAP_GATE}")
+    zero = [k for k in STAGEWISE_KERNELS if sw_res["launches"][k] <= 0]
+    check(not zero, f"kernels never launched on the stagewise path: {zero}")
+    check(sw_res["launches"]["condense_lanes"] == 0 and sw_res["launches"]["admm_lanes"] == 0,
+          "the stagewise path launched a kernel of the condensed path")
+    hold_alloc_main(sw, sw_out, "stagewise", check)
+    log("kernel: " + json.dumps(with_share(time_alloc_main(sw, sw_out, "stagewise path"))))
+    if profiles is not None:
+        profiles.append(profile_steps(sw, sw_warm, f"stagewise B={SW_BATCH} Nt={SW_HORIZON}", n=1))
+
+    # the sweeps' launches: one backward and one forward sweep a re-solve,
+    # both in one launch; one preparation a phase
+    c = sw.cfg
+    n_steps = SW_WARMUP + SW_STEPS
+    phases = c.sqp_iters * c.stagewise.phases + c.cleanup_rounds * c.cleanup_phases
+    resolves = (c.sqp_iters * c.stagewise.phases * c.stagewise.iters
+                + c.cleanup_rounds * c.cleanup_phases * c.cleanup_iters)
+    by = sw_res["riccati_launches_by_design"]
+    kernel_launches = sum(by.values())
+    sweeps = {
+        "resolves_per_step": resolves, "phases_per_step": phases,
+        "bwd_per_step": sw_res["launches"]["riccati_bwd_lanes"] / n_steps,
+        "fwd_per_step": sw_res["launches"]["riccati_fwd_lanes"] / n_steps,
+        "prepare_per_step": sw_res["launches"]["riccati_prepare_lanes"] / n_steps,
+        "kernel_launches_per_resolve": kernel_launches / (resolves * n_steps),
+        "by_design": by,
+    }
+    log("stagewise path, Riccati launches: " + json.dumps(sweeps))
+    check(sw_res["launches"]["riccati_bwd_lanes"] == resolves * n_steps
+          and sw_res["launches"]["riccati_fwd_lanes"] == resolves * n_steps
+          and kernel_launches == resolves * n_steps,
+          f"stagewise path: {resolves} re-solves a step, sweeps launched {sweeps}")
+    check(sweeps["kernel_launches_per_resolve"] <= 2
+          and sw_res["launches"]["riccati_prepare_lanes"] <= phases * n_steps,
+          f"stagewise path: more than 2 launches a re-solve or 1 preparation a phase: {sweeps}")
+
+    captured = capture_riccati(sw, sw_warm)
+    check(sorted(captured) == sorted({SW_BATCH, sw.cfg.cleanup_k}),
+          f"riccati sweeps ran at batch sizes {sorted(captured)}")
+    K_cap = sw.cfg.cleanup_k
+    shapes = [(SW_BATCH, "stagewise path"), (K_cap, "cleanup"),
+              (RICCATI_SMALL, f"the cleanup's first {RICCATI_SMALL} rows")]
+    sw_rows, sw_small = [], []
+    for B_cap, label in shapes:
+        args = captured.get(B_cap if B_cap != RICCATI_SMALL else K_cap)
+        if args is None:
+            continue
+        if B_cap == RICCATI_SMALL:
+            args = (type(args[0])(*(t[:B_cap] for t in args[0])),
+                    *(t[:B_cap] for t in args[1:]))
+        got = check_riccati(sw, *args, label)
+        log(f"riccati plan at B={B_cap} Nt={SW_HORIZON}: {json.dumps(got[0]['plan'])}")
+        (sw_small if B_cap == RICCATI_SMALL else sw_rows).extend(got)
+    for r in sw_rows + sw_small:
+        log("kernel: " + json.dumps(with_share(r)))
+        check(r["max_rel_err"] <= r["tol_rel"] and np.isfinite(r["max_abs_err"])
+              and r.get("pair_rel_err", 0.0) <= r["tol_rel"]
+              and r.get("rel_err_vs_f64", 0.0) <= r.get("tol_rel_f64", 0.0),
+              f"{r['name']} ({r['shape']}) disagrees with its plain version")
+    for r in sw_rows:  # every launch on the path runs both sweeps (checked above)
+        r["launches"] = (by[r["design"]] if r["name"] != "riccati_prepare_lanes"
+                         else sw_res["launches"][r["name"]])
+    del captured, sw_warm, sw_out
+
+    B_small, Nt_small = SW_SMALL
+    step = card_vs_cpu(device, long_horizon_x0(B_small), stagewise_horizon=Nt_small,
+                       steps=SW_SMALL_STEPS)
+    log(f"{SW_SMALL_STEPS} chained stagewise steps, card vs CPU port ({B_small} rows, "
+        f"Nt={Nt_small}, float32): max |dwrench| {step['wrench_err']:.3e} (per step "
+        f"{step['wrench_err_per_step']}), max |du_phys| {step['u_err']:.3e} "
+        f"(tol {TOL_STEP_U}) on the rows whose allocation took the same branches; "
+        f"at most {step['branch_rows']} rows on a branch threshold")
+    check(step["finite"], "stagewise card step is not finite")
+    check(step["wrench_err"] <= TOL_STEP_U and step["u_err"] <= TOL_STEP_U
+          and step["branch_rows"] <= step["rows"] // 8,
+          f"stagewise card step differs from the CPU port: {step}")
+
+    return sw_rows
 
 
 def main(argv=None) -> int:
@@ -2721,60 +2886,7 @@ def main(argv=None) -> int:
 
     del ctx, warm, out  # the condensed path's tensors, before the long horizon
     torch.cuda.empty_cache()
-    sw = Ctx(device, torch.float32, SW_BATCH, stagewise_horizon=SW_HORIZON)
-    sw_res, sw_warm, sw_out = drive_main_path(sw, SW_WARMUP, SW_STEPS)
-    log("stagewise path: " + json.dumps(sw_res))
-    log(f"stagewise path (B={SW_BATCH}, Nt={SW_HORIZON}): p50 {sw_res['p50_ms']:.3f} ms, "
-        f"p99 {sw_res['p99_ms']:.3f} ms, {sw_res['solves_per_s']:.1f} solves/s, "
-        f"max_r_prim {sw_res['max_r_prim']:.3e}, max_term_gap {sw_res['max_term_gap']:.3e}, "
-        f"launches per step {sw_res['launches_per_step']} (not gated on time); card: {card}")
-    check(sw_res["finite"], "stagewise path produced non-finite outputs")
-    check(sw_res["u_shape"] == (SW_BATCH, 16), f"stagewise u_phys shape {sw_res['u_shape']}")
-    check(sw_res["max_r_prim"] <= SW_R_PRIM_GATE,  # NaN fails the comparison too
-          f"stagewise max_r_prim {sw_res['max_r_prim']} > {SW_R_PRIM_GATE}")
-    check(sw_res["max_term_gap"] <= GAP_GATE,
-          f"stagewise max_term_gap {sw_res['max_term_gap']} > {GAP_GATE}")
-    zero = [k for k in STAGEWISE_KERNELS if sw_res["launches"][k] <= 0]
-    check(not zero, f"kernels never launched on the stagewise path: {zero}")
-    check(sw_res["launches"]["condense_lanes"] == 0 and sw_res["launches"]["admm_lanes"] == 0,
-          "the stagewise path launched a kernel of the condensed path")
-    hold_alloc_main(sw, sw_out, "stagewise", check)
-    log("kernel: " + json.dumps(with_share(time_alloc_main(sw, sw_out, "stagewise path"))))
-    if args.profile:
-        profiles.append(profile_steps(sw, sw_warm, f"stagewise B={SW_BATCH} Nt={SW_HORIZON}", n=1))
-
-    captured = capture_riccati(sw, sw_warm)
-    check(sorted(captured) == sorted({SW_BATCH, sw.cfg.cleanup_k}),
-          f"riccati sweeps ran at batch sizes {sorted(captured)}")
-    sw_rows, sw_extra = [], []
-    for B_cap, label in ((SW_BATCH, "stagewise path"), (sw.cfg.cleanup_k, "cleanup")):
-        if B_cap in captured:
-            (sw_rows if B_cap == SW_BATCH else sw_extra).extend(
-                check_riccati(sw, *captured[B_cap], label))
-    for r in sw_rows + sw_extra:
-        log("kernel: " + json.dumps(with_share(r)))
-        check(r["max_rel_err"] <= r["tol_rel"] and r["pair_rel_err"] <= r["tol_rel"]
-              and r["rel_err_vs_f64"] <= r["tol_rel_f64"] and np.isfinite(r["max_abs_err"]),
-              f"{r['name']} ({r['shape']}) disagrees with its plain version")
-    for r in sw_rows:
-        r["launches"] = sw_res["launches"][r["name"]]
-    rows += sw_rows
-    del captured, sw_warm, sw_out
-
-    B_small, Nt_small = SW_SMALL
-    step = card_vs_cpu(device, long_horizon_x0(B_small), stagewise_horizon=Nt_small,
-                       steps=SW_SMALL_STEPS)
-    log(f"{SW_SMALL_STEPS} chained stagewise steps, card vs CPU port ({B_small} rows, "
-        f"Nt={Nt_small}, float32): max |dwrench| {step['wrench_err']:.3e} (per step "
-        f"{step['wrench_err_per_step']}), max |du_phys| {step['u_err']:.3e} "
-        f"(tol {TOL_STEP_U}) on the rows whose allocation took the same branches; "
-        f"at most {step['branch_rows']} rows on a branch threshold")
-    check(step["finite"], "stagewise card step is not finite")
-    check(step["wrench_err"] <= TOL_STEP_U and step["u_err"] <= TOL_STEP_U
-          and step["branch_rows"] <= step["rows"] // 8,
-          f"stagewise card step differs from the CPU port: {step}")
-
-    del sw
+    rows += drive_stagewise(device, card, check, profiles if args.profile else None)
     torch.cuda.empty_cache()
     drive_closed_loop(device, card, check, profiles if args.profile else None)
     torch.cuda.empty_cache()

@@ -14,7 +14,8 @@ Within a phase rho is fixed, so the Riccati quadratic data is factored once
 per phase (`lqr_factor`) and every ADMM iteration is a matvec-only re-solve.
 `cfg.mode` picks the x-update:
   * 'lanes' (`solve_mpc_qp_stagewise_lanes`, the batched controller path):
-    `lqr_resolve_lanes`, two CUDA kernel launches per iteration on the card;
+    `lqr_resolve_lanes` on the phase's `prepare_resolve`, one CUDA kernel
+    launch per iteration on the card and one per phase;
   * 'scan': the plain sequential `lqr_resolve`;
   * 'scan-assoc': the same factorization, re-solved by associative scans
     (`lqr_resolve_assoc`, O(log Nt) depth);
@@ -34,7 +35,7 @@ from typing import NamedTuple
 import torch
 from torch.profiler import record_function
 
-from ft_mpc_torch.solvers.lanes_riccati import lqr_resolve_lanes
+from ft_mpc_torch.solvers.lanes_riccati import lqr_resolve_lanes, prepare_resolve
 from ft_mpc_torch.solvers.riccati import (
     LQRProblem,
     lqr_factor,
@@ -187,6 +188,8 @@ def _solve_batched(qp: StagewiseMPCQP, cfg: StagewiseConfig, y_hull0, y_term0, r
             # one batched Riccati factorization for the whole phase (rho fixed)
             with record_function("ft_mpc.lqr_factor"):
                 fact = lqr_factor(qp.A, qp.B, qp.c, Q_stage, R_stage, QN)
+            if mode == "lanes":  # its preparation, in the span ft_mpc.riccati on the card
+                fact = prepare_resolve(fact)
         soft_t, soft_b = y_max / rho2, y_max / rho3
 
         with record_function("ft_mpc.stagewise_admm"):

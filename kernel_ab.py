@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Time two builds of the condensing, ADMM and allocation kernels on one card,
-in turns.
+"""Time two builds of the kernels on one card, in turns.
 
-    python3 kernel_ab.py OLD_ROOT     # from the root of a checkout
+    python3 kernel_ab.py OLD_ROOT                   # from the root of a checkout
+    python3 kernel_ab.py OLD_ROOT --only riccati    # one source's cases
 
 OLD_ROOT is the root of another checkout of the repo (for example a `git
 archive` of the parent commit).  Its `ft_mpc_torch/csrc/condense.cu`,
-`admm.cu` and `alloc.cu` are built with the same nvcc flags into
-OLD_ROOT/build and loaded beside this checkout's own build.  Both are called
-through the same ctypes code on the same inputs, the condensed main path's
+`admm.cu`, `alloc.cu` and `riccati.cu` are built with the same nvcc flags
+into OLD_ROOT/build and loaded beside this checkout's own build.  The
+condensing, ADMM and allocation kernels of both are called through the same
+ctypes code on the same inputs, the condensed main path's
 (`chip_smoke.py`: B=2048, Nt=15, after init and 12 chained steps):
 - condense on the stage jacobians of the final warm start;
 - ADMM on the QP of the final warm start at T=64 (60 iterations), on the
@@ -24,13 +25,30 @@ outputs are held against the plain version: condense and ADMM within
 chip_smoke's tolerances; allocation u within TOL_ALLOC_MAIN on the rows where
 both took the same branches, with the rows whose branches differ counted (at
 most MAX_FLIP_SHARE of them), and the hull test must decide every row as
-the old kernel does.  Prints the card's name and power limit and one
-JSON line per case.
+the old kernel does.
+
+The Riccati re-solve runs on the stagewise path's own inputs
+(`chip_smoke.capture_riccati` after 2 steps at B=512, Nt=240): its
+factorization and linear terms at B=512 (the main ADMM), at the cleanup's
+B=64 and on the first 8 rows of those (the long-horizon envelope's B=64
+cleanup), and on the first 128, 256 and 384 rows of the B=512 ones (where
+the plan's chunk count falls to one).  The old side is OLD_ROOT's
+`riccati_bwd_f32` then `riccati_fwd_f32` (two launches: a build of the
+one-warp-a-scenario sweeps, before `riccati_split_f32` replaced them); the
+new side is what `lqr_resolve_lanes` runs on a phase's `prepare_resolve`
+(the preparation is made once, outside the timing, as the solver makes it
+once a phase).  Each sweep is also timed alone, and each side's pair held
+against the plain sweeps within TOL_RICCATI.  The new build's re-solve is
+also timed at other chunk lengths on the same inputs (`chunk_ms`), and its
+preparation alone.
+
+Prints the card's name and power limit and one JSON line per case.
 """
 
 from __future__ import annotations
 
 import ctypes
+import itertools
 import json
 import subprocess
 import sys
@@ -50,17 +68,26 @@ ADMM_ARGS = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 4
                 ctypes.c_void_p])
 ALLOC_ARGS = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
               + [ctypes.c_void_p])
-ARGS = {"condense": CONDENSE_ARGS, "admm": ADMM_ARGS, "alloc": ALLOC_ARGS}
+RICCATI_BWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+RICCATI_FWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# {source: {launcher: argtypes}}
+ARGS = {"condense": {"condense_f32": CONDENSE_ARGS}, "admm": {"admm_f32": ADMM_ARGS},
+        "alloc": {"alloc_f32": ALLOC_ARGS},
+        "riccati": {"riccati_bwd_f32": RICCATI_BWD_ARGS, "riccati_fwd_f32": RICCATI_FWD_ARGS}}
+# chunk lengths the re-solve is also timed at (Nt=240: 1 to 16 chunks)
+RICCATI_CHUNKS = (240, 120, 80, 60, 40, 30, 24, 20, 15)
+RICCATI_MIDDLE = (128, 256, 384)  # rows of the B=512 capture, timed as well
 
 
-def build_old(root: Path) -> dict:
-    """{name: <name>_f32 of OLD_ROOT} for each kernel of ARGS, built in parallel."""
+def build_old(root: Path, names) -> dict:
+    """{source: {launcher: handle}} of OLD_ROOT for the sources `names`,
+    built in parallel."""
     from ft_mpc_torch import kernels
 
     out_dir = root / "build"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in ARGS:
+    for name in names:
         so = out_dir / f"{name}-ab.so"
         cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(so),
                str(root / "ft_mpc_torch" / "csrc" / f"{name}.cu")]
@@ -73,10 +100,13 @@ def build_old(root: Path) -> dict:
             raise RuntimeError(f"old {name} build failed:\n{text}")
         usage = [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
         print(f"ptxas old {name}: " + " | ".join(usage), flush=True)
-        fn = getattr(ctypes.CDLL(str(so)), f"{name}_f32")
-        fn.argtypes = ARGS[name]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
+        lib = ctypes.CDLL(str(so))
+        fns[name] = {}
+        for fn_name, argtypes in ARGS[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[name][fn_name] = fn
     return fns
 
 
@@ -145,6 +175,101 @@ def alloc_phases(fn, args, device) -> dict:
             "admm_us_per_iter": 1e3 * (t[(0, admm)] - t[(0, 0)]) / admm}
 
 
+def old_bwd(fns, f, q, r, qN):
+    """OLD_ROOT's backward sweep: ks."""
+    from ft_mpc_torch import kernels
+
+    B, Nt = f.F.shape[:2]
+    ks = torch.empty((B, Nt, 6), dtype=torch.float32, device=f.F.device)
+    err = fns["riccati_bwd_f32"](f.F.data_ptr(), f.B.data_ptr(), f.K.data_ptr(),
+                                 f.Quu_inv.data_ptr(), f.PC.data_ptr(), q.data_ptr(),
+                                 r.data_ptr(), qN.data_ptr(), ks.data_ptr(), B, Nt,
+                                 kernels.stream_of(f.F))
+    if err:
+        raise RuntimeError(f"old riccati_bwd_f32: CUDA error {err}")
+    return ks
+
+
+def old_fwd(fns, f, ks, x0):
+    """OLD_ROOT's forward sweep: (X, U)."""
+    from ft_mpc_torch import kernels
+
+    B, Nt = f.F.shape[:2]
+    X = torch.empty((B, Nt + 1, 13), dtype=torch.float32, device=f.F.device)
+    U = torch.empty((B, Nt, 6), dtype=torch.float32, device=f.F.device)
+    err = fns["riccati_fwd_f32"](f.F.data_ptr(), f.B.data_ptr(), f.c.data_ptr(),
+                                 f.K.data_ptr(), ks.data_ptr(), x0.data_ptr(), X.data_ptr(),
+                                 U.data_ptr(), B, Nt, kernels.stream_of(f.F))
+    if err:
+        raise RuntimeError(f"old riccati_fwd_f32: CUDA error {err}")
+    return X, U
+
+
+def riccati_results(old, device):
+    """The Riccati re-solve, old build against new, on the stagewise path's
+    captured inputs (module docstring); yields one result a shape."""
+    from ft_mpc_torch.solvers import lanes_riccati as lr
+    from ft_mpc_torch.solvers.riccati import (
+        LQRFactorization,
+        resolve_bwd_plain,
+        resolve_fwd_plain,
+    )
+
+    sw = cs.Ctx(device, torch.float32, cs.SW_BATCH, stagewise_horizon=cs.SW_HORIZON)
+    _, warm, _ = cs.drive_main_path(sw, 0, 2)
+    cap = cs.capture_riccati(sw, warm)
+    K = sw.cfg.cleanup_k
+    first = lambda a, n: (LQRFactorization(*(t[:n].contiguous() for t in a[0])),
+                          *(t[:n].contiguous() for t in a[1:]))
+    cases = [("stagewise path", cap[cs.SW_BATCH]), ("cleanup", cap[K]),
+             (f"the cleanup's first {cs.RICCATI_SMALL} rows", first(cap[K], cs.RICCATI_SMALL))]
+    # batches between, where the plan moves from many chunks to one
+    cases += [(f"the stagewise path's first {n} rows", first(cap[cs.SW_BATCH], n))
+              for n in RICCATI_MIDDLE]
+    del sw, warm, cap
+    for label, (fact, q, r, qN, x0) in cases:
+        f = LQRFactorization(*(t.float().contiguous() for t in fact))
+        q, r, qN, x0 = (t.float().contiguous() for t in (q, r, qN, x0))
+        B, Nt = f.F.shape[:2]
+        ks_p = resolve_bwd_plain(f.F, f.B, f.K, f.Quu_inv, f.PC, q, r, qN)
+        ref = (ks_p, *resolve_fwd_plain(f.F, f.B, f.c, f.K, ks_p, x0))
+        prep = lr.prepare_resolve(f)
+        fns = old["riccati"]
+        new_pair = lambda: lr.lqr_resolve_lanes(prep, q, r, qN, x0)
+        old_pair = lambda: old_fwd(fns, f, old_bwd(fns, f, q, r, qN), x0)
+        new_bwd = lambda: lr.riccati_split_lanes(prep, q, r, qN, x0, parts=1)
+        new_fwd = lambda: lr.riccati_split_lanes(prep, q, r, qN, x0, parts=2, ks=ks_p)
+        ks_o = old_bwd(fns, f, q, r, qN)
+        got_old = (ks_o, *old_fwd(fns, f, ks_o, x0))
+        got_new = (new_bwd(), *new_pair())
+        bounds = cs.riccati_bounds(f.F, f.B, f.c, f.K, f.Quu_inv, f.PC, q, r, qN, x0)
+        res = {"kernel": "riccati", "shape": f"{label}: B={B} Nt={Nt}",
+               "plan": lr.riccati_plan(B, Nt),
+               "bound_ms": bounds["pair"][0], "bound_by": bounds["pair"][1],
+               "old_max_rel_err": cs.rel_err(got_old, ref)[1],
+               "new_max_rel_err": cs.rel_err(got_new, ref)[1],
+               **in_turns(old_pair, new_pair, 20, device)}
+        for key, o, n in (("bwd", lambda: old_bwd(fns, f, q, r, qN), new_bwd),
+                          ("fwd", lambda: old_fwd(fns, f, ks_p, x0), new_fwd)):
+            t = in_turns(o, n, 20, device)
+            res[key] = {"old_ms": t["old_ms"], "new_ms": t["new_ms"], "speedup": t["speedup"],
+                        "bound_ms": bounds[key][0]}
+        res["prepare_ms"] = cs.time_ms(lambda: lr.riccati_prepare_lanes(f, prep.chunk), 20,
+                                       device, device_only=True)
+        chunk_ms = {}
+        for L in RICCATI_CHUNKS:
+            if L > Nt:
+                continue
+            try:  # a chunk count whose block does not fit is refused (None)
+                p_L = lr.prepared(f, L)
+                chunk_ms[L] = cs.time_ms(lambda: lr.riccati_split_lanes(p_L, q, r, qN, x0), 20,
+                                         device, device_only=True)
+            except RuntimeError:
+                chunk_ms[L] = None
+        res["chunk_ms"] = chunk_ms
+        yield res
+
+
 def in_turns(old, new, reps, device) -> dict:
     """ms of each side, timed old, new, new, old."""
     t = [cs.time_ms(f, reps, device, device_only=True) for f in (old, new, new, old)]
@@ -154,7 +279,10 @@ def in_turns(old, new, reps, device) -> dict:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if len(argv) != 1:
+    only = None
+    if len(argv) == 3 and argv[1] == "--only" and argv[2] in ARGS:
+        only = argv[2]
+    elif len(argv) != 1:
         print(__doc__, file=sys.stderr)
         return 2
     old_root = Path(argv[0]).resolve()
@@ -162,22 +290,64 @@ def main(argv=None) -> int:
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     import ft_mpc_torch
-    from ft_mpc_torch import kernels
-    from ft_mpc_torch.solvers.lanes_alloc import alloc_plain
-    from ft_mpc_torch.solvers.lanes_condense import condense_plain
-    from ft_mpc_torch.solvers.lanes_qp import admm_plain, admm_plan
 
     ft_mpc_torch.pin_fp32_matmuls()
     device = torch.device("cuda", 0)
     print(f"card: {cs.card_line()}", flush=True)
     cs.build_kernels()
-    old = build_old(old_root)
-    new = {name: kernels.function(name, f"{name}_f32", argtypes)
-           for name, argtypes in ARGS.items()}
+    old = build_old(old_root, [only] if only else list(ARGS))
+    results = iter(())
+    if only in (None, "riccati"):
+        results = riccati_results(old, device)
+    if only in (None, "condense", "admm", "alloc"):
+        results = itertools.chain(results, condensed_results(old, device, only))
+
+    ok = True
+    for r in results:  # each printed as it comes
+        cs.sync(device)
+        r["old_bound_share"] = r["bound_ms"] / r["old_ms"]
+        r["new_bound_share"] = r["bound_ms"] / r["new_ms"]
+        print("ab: " + json.dumps(r), flush=True)
+        if r["kernel"] == "condense":
+            ok &= r["new_max_abs_err"] <= r["tol"]
+        elif r["kernel"] == "admm":
+            ok &= r["new_max_rel_err"] <= cs.TOL_ADMM
+        elif r["kernel"] == "riccati":
+            ok &= r["new_max_rel_err"] <= cs.TOL_RICCATI
+        else:
+            # the hull test keeps its rounding: the same decision as the old kernel on every row
+            v = r["new_vs_plain"]
+            ok &= (v["u_err"] <= cs.TOL_ALLOC_MAIN and v["branch_rows"] <= cs.MAX_FLIP_SHARE * r["rows"]
+                   and r["new_vs_old"]["hull_rows"] == 0)
+    print(f"card: {cs.card_line()}", flush=True)
+    return 0 if ok else 1
+
+
+def condensed_results(old, device, only):
+    """The condensing, ADMM and allocation cases (module docstring); `only`
+    one of them.  Runs when first iterated."""
+    from ft_mpc_torch import kernels
+
+    names = [only] if only else ["condense", "admm", "alloc"]
+    old = {name: old[name][f"{name}_f32"] for name in names}
+    new = {name: kernels.function(name, f"{name}_f32", ARGS[name][f"{name}_f32"])
+           for name in names}
 
     ctx = cs.Ctx(device, torch.float32, cs.BATCH)
     _, warm, out = cs.drive_main_path(ctx, 10, 2)
     results = []
+    sp = ctx.sp
+    if "condense" in names:
+        results.append(condense_result(ctx, warm, old, new, device))
+    if "admm" in names:
+        results += admm_results(ctx, warm, out, old, new, device)
+    if "alloc" in names:
+        results += alloc_results(ctx, out, old, new, device)
+    yield from results
+
+
+def condense_result(ctx, warm, old, new, device) -> dict:
+    from ft_mpc_torch.solvers.lanes_condense import condense_plain
 
     sp = ctx.sp
     X = torch.cat([sp.robot_to_center(ctx.bank.r, ctx.x0)[:, None], warm.X[:, 1:]], dim=1)
@@ -194,8 +364,14 @@ def main(argv=None) -> int:
            "old_max_abs_err": errs[0], "new_max_abs_err": errs[1], "tol": tol_condense,
            **in_turns(lambda: call_condense(old["condense"], A, Bm, d),
                       lambda: call_condense(new["condense"], A, Bm, d), 20, device)}
-    results.append(res)
+    return res
 
+
+def admm_results(ctx, warm, out, old, new, device) -> list:
+    from ft_mpc_torch.solvers.lanes_qp import admm_plain, admm_plan
+
+    sp = ctx.sp
+    results = []
     x_lb, x_ub = np.full(13, -1e8), np.full(13, 1e8)
     x_lb[3:6], x_ub[3:6] = -1.0, 1.0  # chip_smoke.py's box and rate rows
     boxed = sp.MPCWeights.from_diagonals(cs.Q_DIAG, cs.R_DIAG, x_lb=x_lb, x_ub=x_ub,
@@ -232,8 +408,13 @@ def main(argv=None) -> int:
         res["new_us_per_iter"] = 1e3 * res["new_ms"] / iters
         results.append(res)
         del args, ref
-    del cases
+    return results
 
+
+def alloc_results(ctx, out, old, new, device) -> list:
+    from ft_mpc_torch.solvers.lanes_alloc import alloc_plain
+
+    results = []
     full = cs.alloc_args(ctx, out.wrench)
     iters = sum(cs.ALLOC_HYPER[:2])
     for label, rows in (("condensed path", len(full[1])), ("first rows, stagewise batch", cs.SW_BATCH)):
@@ -254,24 +435,7 @@ def main(argv=None) -> int:
         for side, fns in (("old", old), ("new", new)):
             res[f"{side}_phases"] = alloc_phases(fns["alloc"], args, device)
         results.append(res)
-    cs.sync(device)
-
-    ok = True
-    for r in results:
-        r["old_bound_share"] = r["bound_ms"] / r["old_ms"]
-        r["new_bound_share"] = r["bound_ms"] / r["new_ms"]
-        print("ab: " + json.dumps(r), flush=True)
-        if r["kernel"] == "condense":
-            ok &= r["new_max_abs_err"] <= r["tol"]
-        elif r["kernel"] == "admm":
-            ok &= r["new_max_rel_err"] <= cs.TOL_ADMM
-        else:
-            # the hull test keeps its rounding: the same decision as the old kernel on every row
-            v = r["new_vs_plain"]
-            ok &= (v["u_err"] <= cs.TOL_ALLOC_MAIN and v["branch_rows"] <= cs.MAX_FLIP_SHARE * r["rows"]
-                   and r["new_vs_old"]["hull_rows"] == 0)
-    print(f"card: {cs.card_line()}", flush=True)
-    return 0 if ok else 1
+    return results
 
 
 if __name__ == "__main__":

@@ -293,34 +293,79 @@ def riccati_case(gen, B, Nt, device):
     return fact, lin
 
 
-@pytest.mark.parametrize("B,Nt", [(70, 240), (5, 1), (3, 7)])
+@pytest.mark.parametrize("B,Nt", [(64, 240), (8, 240), (512, 240), (70, 240), (64, 61),
+                                  (5, 1), (3, 7), (3, 2300)])
 def test_riccati_kernels_match_plain(dev, gen, B, Nt):
-    """Each sweep kernel against its plain half, and the pair through
-    `lqr_resolve_lanes` against `lqr_resolve`; Nt = 1 and 7 end inside the
-    kernels' prefetch ring, Nt = 240 wraps it 60 times."""
+    """`csrc/riccati.cu` against the plain sweeps: the preparation against
+    `riccati_prepare_plain`; the backward and forward sweeps alone
+    (`riccati_bwd_lanes`, `riccati_fwd_lanes`, and parts 1 and 2) and fused,
+    at the chunk `riccati_plan` gives and at one chunk; the pair through
+    `lqr_resolve_lanes` against `lqr_resolve`, with its launches counted by
+    design.  Nt = 1 and 7 end inside the kernel's rings, Nt = 240 wraps
+    them; at Nt = 2300 the block does not stage the linear terms."""
     f, (q, r, qN, x0) = riccati_case(gen, B, Nt, dev)
-    n0 = (lr.riccati_bwd_lanes.launches, lr.riccati_fwd_lanes.launches)
-    ks = lr.riccati_bwd_lanes(f.F, f.B, f.K, f.Quu_inv, f.PC, q, r, qN)
+    bwd, fwd, prep_k = lr.riccati_bwd_lanes, lr.riccati_fwd_lanes, lr.riccati_prepare_lanes
+    by = lr.riccati_split_lanes.launches_by_design
+    counts = lambda: (bwd.launches, fwd.launches, prep_k.launches, dict(by))
+    plan = lr.riccati_plan(B, Nt)
+    design = lr.riccati_design(B, Nt)
+    L, C = plan["chunk"], plan["chunks"]
+    assert design == plan["design"] == ("chunked" if C > 1 else "sequential")
+    assert design == ("chunked" if B <= 320 and Nt > 1 else "sequential")
+    assert 1 <= L <= Nt and C == -(-Nt // L) and plan["threads"] == 32 * C
+    assert plan["blocks_per_sm"] >= 1 and plan["staged"] == (Nt < 2000)
+    plus = lambda n, d, k: {**n, d: n[d] + k}
+
+    n0 = counts()
+    ks = bwd(f.F, f.B, f.K, f.Quu_inv, f.PC, q, r, qN)
     ks_ref = rc.resolve_bwd_plain(f.F, f.B, f.K, f.Quu_inv, f.PC, q, r, qN)
-    X, U = lr.riccati_fwd_lanes(f.F, f.B, f.c, f.K, ks_ref, x0)
+    X, U = fwd(f.F, f.B, f.c, f.K, ks_ref, x0)
     torch.cuda.synchronize()
-    assert (lr.riccati_bwd_lanes.launches, lr.riccati_fwd_lanes.launches) == (n0[0] + 1, n0[1] + 1)
+    n1 = counts()  # each: a preparation and one sweep
+    assert n1 == (n0[0] + 1, n0[1] + 1, n0[2] + 2, plus(n0[3], design, 2))
     X_ref, U_ref = rc.resolve_fwd_plain(f.F, f.B, f.c, f.K, ks_ref, x0)
     assert X.shape == (B, Nt + 1, 13) and U.shape == (B, Nt, 6)
     np.testing.assert_allclose(np_(ks), np_(ks_ref), atol=2e-5)
     np.testing.assert_allclose(np_(X), np_(X_ref), atol=2e-5)
     np.testing.assert_allclose(np_(U), np_(U_ref), atol=2e-5)
     np.testing.assert_array_equal(np_(X[:, 0]), np_(x0))
+
+    for chunk in sorted({L, Nt}):
+        rec, psi = lr.riccati_prepare_lanes(f, chunk)
+        rec_ref, psi_ref = lr.riccati_prepare_plain(f, chunk)
+        np.testing.assert_allclose(np_(rec), np_(rec_ref), rtol=0, atol=1e-5)
+        assert (psi is None) == (psi_ref is None) == (chunk == Nt)
+        if psi is not None:
+            np.testing.assert_allclose(np_(psi), np_(psi_ref), rtol=0, atol=1e-5)
+        prep = lr.RiccatiPrep(f, F32, lr.RICCATI_DESIGNS[psi is not None], chunk, rec, psi)
+        n1 = counts()
+        ks_s = lr.riccati_split_lanes(prep, q, r, qN, x0, parts=1)
+        X_s, U_s = lr.riccati_split_lanes(prep, q, r, qN, x0, parts=2, ks=ks_ref)
+        X_p, U_p = lr.riccati_split_lanes(prep, q, r, qN, x0)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(np_(ks_s), np_(ks_ref), atol=2e-5)
+        for got in ((X_s, U_s), (X_p, U_p)):
+            np.testing.assert_allclose(np_(got[0]), np_(X_ref), atol=2e-5)
+            np.testing.assert_allclose(np_(got[1]), np_(U_ref), atol=2e-5)
+            np.testing.assert_array_equal(np_(got[0][:, 0]), np_(x0))
+        # parts 1 and 3 count a backward sweep, parts 2 and 3 a forward one
+        assert counts() == (n1[0] + 2, n1[1] + 2, n1[2], plus(n1[3], prep.design, 3))
+
     f64 = rc.LQRFactorization(*(t.double() for t in f))  # float32 inside, cast back
+    n2 = counts()
     Xp, Up = lr.lqr_resolve_lanes(f64, q.double(), r.double(), qN.double(), x0.double())
     assert Xp.dtype == torch.float64
     Xr, Ur = rc.lqr_resolve(f, q, r, qN, x0)
     np.testing.assert_allclose(np_(Xp), np_(Xr), atol=2e-5)
     np.testing.assert_allclose(np_(Up), np_(Ur), atol=2e-5)
+    # prepared on the fly: one preparation, one fused launch
+    assert counts() == (n2[0] + 1, n2[1] + 1, n2[2] + 1, plus(n2[3], design, 1))
     with pytest.raises(ValueError):
         lr.riccati_bwd_lanes(f.F.double(), f.B, f.K, f.Quu_inv, f.PC, q, r, qN)
     with pytest.raises(ValueError):
         lr.riccati_fwd_lanes(f.F, f.B, f.c, f.K, ks_ref[:, :-1] if Nt > 1 else ks_ref[:1], x0)
+    with pytest.raises(ValueError):
+        lr.riccati_split_lanes(prep, q, r, qN, x0, parts=2)  # the forward sweep reads ks
 
 
 def test_stagewise_step_card_matches_cpu(dev):
@@ -348,11 +393,17 @@ def test_stagewise_step_card_matches_cpu(dev):
         warm = sp.init_warmstart_batch(params, bank, w, cfg, sp.robot_to_center(bank.r, x0_t),
                                        x_ref, u_ref)
         assert warm.kinv is None
-        launches = lr.riccati_bwd_lanes.launches
+        launches = (lr.riccati_bwd_lanes.launches, lr.riccati_fwd_lanes.launches,
+                    lr.riccati_prepare_lanes.launches)
         outs.append(sp.get_control_batch(params, bank, w, cfg, x0_t, x_ref, u_ref, warm))
         if device.type == "cuda":
             torch.cuda.synchronize()
-            assert lr.riccati_bwd_lanes.launches == launches + 2 * 40 + 2 * 80
+            # one re-solve a launch of both sweeps; one preparation a phase
+            # (2 SQP + 2 cleanup)
+            resolves = 2 * 40 + 2 * 80
+            assert (lr.riccati_bwd_lanes.launches, lr.riccati_fwd_lanes.launches,
+                    lr.riccati_prepare_lanes.launches) == (
+                launches[0] + resolves, launches[1] + resolves, launches[2] + 4)
     assert torch.isfinite(outs[0].u_phys).all()
     np.testing.assert_allclose(np_(outs[0].wrench), np_(outs[1].wrench), atol=2e-2)
     branch = lambda o: torch.stack([o.alloc.was_clipped, o.alloc.used_fallback], 1).cpu()
