@@ -133,6 +133,26 @@
    sides, with at most a quarter of the rows on a threshold (BOX_STATES_NOTE),
    the box excess of both sides and their distance from the CPU port in
    float64 printed.
+11. Drives the bench entry and the measuring scripts of
+   `ft_mpc_torch/benchmarks/` as smoke runs (the full measurements are their
+   own calls), each record printed on a line of its own and gated; each
+   script zeroes the launch counters just before its windows and reads them
+   just after:
+   - `bench.main` at B=2048 with 1 warm-up and BENCH_WINDOWS = 2 timed
+     windows of 10 chained steps: no failed gate, the record's fields, the
+     card's name and power limit, finite outputs, max_term_gap <= 0.4, the
+     gap rows within the pinned set, launches 3 / 5 / 1 a step;
+   - `envelope.main` on Nt=240 stagewise-lanes at B=64 and condensed at
+     B=512 (2 + 2 steps each): max_r_prim <= 1e-2 and max_term_gap <= 0.4;
+     one launch a re-solve (720 a step) and 4 preparations a step on the
+     first, 3 / 4 / 1 on the second (its cleanup has 2 phases);
+   - `long_horizon.run`'s 'stagewise' backend (mode 'scan') at Nt=15, B=64,
+     1 + 1 steps: max_r_prim equal to the stagewise-lanes backend's at the
+     same point (rtol 5e-2, atol 1e-3), max_term_gap <= 0.4, one allocation
+     launch a step;
+   - `profile_step.main` at B=2048 with one repetition a component and (h)
+     at B=4096: host and event times for each component, the device-busy
+     time and peak device memory of the full step, (a) and (h).
 
 Prints the card's name and power limit, one JSON line with every kernel's
 numbers, and as its last line {"ok": true, "device": {...}}.  Exits with a
@@ -154,12 +174,21 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from ft_mpc_torch.benchmarks.common import (
+    H100_HBM_BYTES_PER_S,
+    bench_x0,
+    card_line,
+    long_horizon_x0,
+    read_counters,
+    zero_counters,
+)
+
 REPO = Path(__file__).resolve().parent
 
-# H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, and HBM3 bandwidth.  A card set below 700 W runs slower under load.
+# H100 SXM published peak (NVIDIA data sheet): fp32 outside the tensor
+# cores; the HBM3 bandwidth is common's.  A card set below 700 W runs slower
+# under load.
 PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
 
 Q_DIAG = [1, 1, 1, 1, 1, 1, 2, 2, 2]  # DEFAULT_TUNING of the JAX package
 R_DIAG = [0.1, 0.1, 0.1, 0.01, 0.01, 0.01]
@@ -274,6 +303,19 @@ BOX_STATES_NOTE = (
     "once a phase's r_prim <= 1e-4 and otherwise adapts it (by up to 5x in the "
     "cleanup), and the line search picks one of three step lengths; such rows are "
     "counted, as the allocation's branches are, and the others held to TOL_STEP_U")
+# section 11: the bench entry and the measuring scripts (ft_mpc_torch/benchmarks)
+BENCH_WINDOWS = 2  # 1 warm-up and 2 timed windows of 10 chained steps (12 in the bench)
+ENVELOPE_POINTS = ((240, "stagewise-lanes", 64), (15, "condensed", 512))
+ENVELOPE_REPS = 2
+SCAN_POINT = (15, 64)  # (Nt, B) of long_horizon.run's 'stagewise' (mode 'scan') backend
+PROFILE_SWEEP = (4096,)  # (h) of profile_step, one repetition a component
+BENCH_FIELDS = (
+    "metric", "value", "unit", "batch", "per_step_latency_ms", "latency_p50_ms",
+    "latency_p99_ms", "latency_windows", "max_r_prim", "max_term_gap", "n_restoration_gap",
+    "gap_rows", "gap_patterns", "device", "card", "power_limit", "steps_per_window",
+    "warmup_windows", "init_ms", "bank_build_s", "meets_control_period", "newton_rescues",
+    "launches_per_step", "failed_gates",
+)
 CONDENSED_KERNELS = ("condense_lanes", "admm_lanes", "allocate_thrusters_lanes")
 STAGEWISE_KERNELS = ("riccati_bwd_lanes", "riccati_fwd_lanes", "riccati_prepare_lanes",
                      "allocate_thrusters_lanes")
@@ -285,14 +327,6 @@ def log(*args) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 class Ctx:
@@ -394,28 +428,6 @@ def tree_to(tree, device, dtype):
                     else x.to(device), tree)
 
 
-def bench_x0(B: int) -> np.ndarray:
-    """bench.py:113-120 exactly: seeded tumbling robot states, float32."""
-    rng = np.random.default_rng(0)
-    x0 = np.zeros((B, 13), dtype=np.float32)
-    x0[:, 0:3] = rng.uniform(-1, 1, (B, 3))
-    x0[:, 3:6] = rng.uniform(-0.3, 0.3, (B, 3))
-    q = rng.standard_normal((B, 4))
-    x0[:, 6:10] = q / np.linalg.norm(q, axis=1, keepdims=True)
-    x0[:, 10:13] = rng.uniform(-0.3, 0.3, (B, 3))
-    return x0
-
-
-def long_horizon_x0(B: int) -> np.ndarray:
-    """benchmarks/long_horizon.py:97-101: seeded positions, identity attitude,
-    at rest."""
-    rng = np.random.default_rng(0)
-    x0 = np.zeros((B, 13), dtype=np.float32)
-    x0[:, 0:3] = rng.uniform(-1, 1, (B, 3))
-    x0[:, 9] = 1.0
-    return x0
-
-
 def gentle_x0(B: int) -> np.ndarray:
     """States near the certified terminal sets (tests/test_lanes.py:139-149),
     where the JAX suite compares its whole step across implementations."""
@@ -469,26 +481,13 @@ def time_ms(fn, reps: int, device, rounds: int = 3, device_only: bool = False) -
 
 
 def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
-    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_bytes = n_bytes / H100_HBM_BYTES_PER_S
     t_ops = flops / PEAK_FP32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def counters():
-    from ft_mpc_torch.solvers import lanes_alloc, lanes_condense, lanes_qp, lanes_riccati
-
-    return {
-        "condense_lanes": lanes_condense.condense_lanes,
-        "admm_lanes": lanes_qp.admm_lanes,
-        "allocate_thrusters_lanes": lanes_alloc.allocate_thrusters_lanes,
-        "riccati_bwd_lanes": lanes_riccati.riccati_bwd_lanes,
-        "riccati_fwd_lanes": lanes_riccati.riccati_fwd_lanes,
-        "riccati_prepare_lanes": lanes_riccati.riccati_prepare_lanes,
-    }
 
 
 # ---------------------------------------------------------------------------
@@ -519,7 +518,6 @@ def drive_main_path(ctx: Ctx, warmup: int = WARMUP, steps: int = STEPS):
     from ft_mpc_torch.solvers.lanes_riccati import riccati_split_lanes
 
     zero_counters()
-    newton_kinv.rescues = 0
     t0 = time.perf_counter()
     warm = ctx.init()
     sync(ctx.device)
@@ -1251,20 +1249,6 @@ class StepRecorder:
 
     def step_ms(self) -> np.ndarray:
         return 1e3 * np.diff(np.asarray(self.stamps))
-
-
-def zero_counters() -> None:
-    from ft_mpc_torch.solvers.lanes_qp import admm_lanes
-    from ft_mpc_torch.solvers.lanes_riccati import riccati_split_lanes
-
-    for fn in counters().values():
-        fn.launches = 0
-    for fn in (admm_lanes, riccati_split_lanes):
-        fn.launches_by_design = dict.fromkeys(fn.launches_by_design, 0)
-
-
-def read_counters() -> dict:
-    return {name: fn.launches for name, fn in counters().items()}
 
 
 def history_stats(hist, rec: StepRecorder, u_ub) -> dict:
@@ -2775,6 +2759,119 @@ def drive_stagewise(device, card: str, check, profiles: list | None = None) -> l
     return sw_rows
 
 
+# ---------------------------------------------------------------------------
+# section 11: the bench entry and the measuring scripts (ft_mpc_torch/benchmarks)
+# ---------------------------------------------------------------------------
+
+
+def launches_off(launches_per_step: dict, want: dict) -> dict:
+    """{kernel: launches a step} of the kernels whose count is not `want`'s
+    (0 where `want` does not name it)."""
+    return {k: v for k, v in launches_per_step.items() if v != want.get(k, 0)}
+
+
+def drive_bench_scripts(device, card: str, check) -> None:
+    """Section 11: the bench entry, the envelope's two points, the 'scan'
+    backend and the component profile as smoke runs, each record printed
+    and gated.  Each script zeroes the launch counters just before its
+    windows and reads them just after."""
+    from ft_mpc_torch.benchmarks import bench, envelope, long_horizon, profile_step
+
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else None
+    card = card if name else None  # the records' nvidia-smi line, None on the CPU
+    rec = bench.main(device=device, windows=BENCH_WINDOWS)
+    log("section 11, bench: " + json.dumps(rec))
+    log(f"11a: bench (B={rec['batch']}, 1 + {rec['latency_windows']} windows of "
+        f"{rec['steps_per_window']} chained steps): p50 {rec['latency_p50_ms']:.3f} ms, p99 "
+        f"{rec['latency_p99_ms']:.3f} ms, {rec['value']:.1f} solves/s, meets the control "
+        f"period: {rec['meets_control_period']}; gap rows {rec['gap_rows']}; card: {card}")
+    missing = [k for k in BENCH_FIELDS if k not in rec]
+    check(not missing, f"bench record lacks {missing}")
+    check(not rec["failed_gates"], f"bench gates failed: {rec['failed_gates']}")
+    check(rec["batch"] == BATCH and rec["latency_windows"] == BENCH_WINDOWS
+          and rec["steps_per_window"] == 10 and rec["warmup_windows"] == 1
+          and len(rec["latency_samples_ms"]) == BENCH_WINDOWS,
+          f"bench ran {rec['batch']} rows, {rec['latency_windows']} windows")
+    check(rec["card"] == name and rec["nvidia_smi"] == card and rec["device"] == str(device),
+          f"bench record names {rec['card']!r} / {rec['nvidia_smi']!r}, not {name!r} / {card!r}")
+    check(rec["finite"] and rec["u_shape"] == [BATCH, 16], "bench outputs not finite")
+    check(rec["max_term_gap"] <= GAP_GATE, f"bench max_term_gap {rec['max_term_gap']}")
+    check(set(rec["gap_rows"]) <= REFERENCE_GAP_ROWS,
+          f"bench gap rows {rec['gap_rows']} outside {sorted(REFERENCE_GAP_ROWS)}")
+    check(rec["meets_control_period"] == (rec["latency_p50_ms"] <= PERIOD_MS),
+          "bench: meets_control_period disagrees with its p50")
+    off = launches_off(rec["launches_per_step"], LOOP_LAUNCHES)
+    check(not off, f"bench: launches a step other than 3 / 5 / 1: {off}")
+
+    env = envelope.main(points=ENVELOPE_POINTS, reps=ENVELOPE_REPS, device=device)
+    log("section 11, envelope: " + json.dumps(env))
+    check(env["card"] == name and env["nvidia_smi"] == card, "envelope record: card")
+    resolves = 2 * 60 + 300 * 2  # sqp_iters * iters + cleanup * 2 phases
+    for row in env["points"]:
+        label = f"envelope Nt={row['Nt']} {row['backend']} B={row['B']}"
+        log(f"11b: {label}: {row['ms_per_step']:.3f} ms a step, {row['solves_per_s']:.1f} "
+            f"solves/s, max_r_prim {row['max_r_prim']:.3e}, max_term_gap "
+            f"{row['max_term_gap']:.3e}, meets 100 ms: {row['meets_100ms']}; card: {card}")
+        check(row["max_r_prim"] <= SW_R_PRIM_GATE and row["max_term_gap"] <= GAP_GATE,
+              f"{label}: max_r_prim {row['max_r_prim']}, max_term_gap {row['max_term_gap']}")
+        per = row["launches_per_step"]
+        if row["backend"] == "stagewise-lanes":
+            by = sum(row["riccati_launches_by_design"].values()) / row["counted_steps"]
+            check(per["riccati_bwd_lanes"] == per["riccati_fwd_lanes"] == by == resolves
+                  and per["riccati_prepare_lanes"] == 4,
+                  f"{label}: {by} re-solve launches and {per['riccati_prepare_lanes']} "
+                  f"preparations a step, not {resolves} and 4: {per}")
+            off = launches_off(per, {"riccati_bwd_lanes": resolves, "riccati_fwd_lanes":
+                                     resolves, "riccati_prepare_lanes": 4,
+                                     "allocate_thrusters_lanes": 1})
+        else:  # long_horizon's cleanup runs 2 phases: one ADMM launch each
+            off = launches_off(per, {"condense_lanes": 3, "admm_lanes": 4,
+                                     "allocate_thrusters_lanes": 1})
+        check(not off, f"{label}: launches a step {off}")
+
+    # the 'scan' backend and stagewise-lanes run the same solver (the JAX
+    # script's two backends read the same max_r_prim); after 1 + 1 steps from
+    # the warm start the residual has not yet reached section 5's 1e-2 class
+    # (both read 1.394e-2 on the CPU and on an H100 here), so the first is
+    # held to the second, as tests/test_torch_spiraling.py holds r_prim
+    nt, b = SCAN_POINT
+    small = SimpleNamespace(sqp_iters=2, iters=60, cleanup=300, reps=1)
+    scan = long_horizon.run(nt, "stagewise", b, small, device)
+    lanes = long_horizon.run(nt, "stagewise-lanes", b, small, device)
+    log("section 11, long_horizon 'scan': " + json.dumps(scan))
+    log(f"11c: long_horizon.run Nt={nt} stagewise (mode 'scan') B={b}: "
+        f"{scan['ms_per_step']:.3f} ms a step, max_r_prim {scan['max_r_prim']:.3e} "
+        f"(stagewise-lanes {lanes['max_r_prim']:.3e}, {lanes['ms_per_step']:.3f} ms a "
+        f"step), max_term_gap {scan['max_term_gap']:.3e}; card: {card}")
+    check(abs(scan["max_r_prim"] - lanes["max_r_prim"])
+          <= 1e-3 + 5e-2 * abs(lanes["max_r_prim"]) and scan["max_term_gap"] <= GAP_GATE,
+          f"'scan' backend: max_r_prim {scan['max_r_prim']} (stagewise-lanes "
+          f"{lanes['max_r_prim']}), max_term_gap {scan['max_term_gap']}")
+    off = launches_off(scan["launches_per_step"], {"allocate_thrusters_lanes": 1})
+    check(not off, f"'scan' backend: launches a step {off}")
+
+    prof = profile_step.main(B=BATCH, reps=1, sweep=PROFILE_SWEEP, device=device)
+    log("section 11, profile_step: " + json.dumps(prof))
+    rows = prof["components"]
+    bad = [k for k, v in rows.items() if k != "cleanup (b - b0)" and not all(
+        (v[t] or 0) > 0 for t in ("host_ms", "event_ms"))]
+    check(not bad, f"profile_step: components without host or event time: {bad}")
+    # the full step's device time and peak memory; a component of a few ms
+    # read no kernel time once in four profiler sessions on an H100
+    full = {k: v for k, v in rows.items() if k.startswith(("(a)", "(h)"))}
+    check(len(full) == 1 + len(PROFILE_SWEEP) and all(
+        (v["device_busy_ms"] or 0) > 0 and v.get("peak_mem_bytes", 0) > 0
+        for v in full.values()), f"profile_step: the full step's device time or peak "
+          f"memory missing: {full}")
+    check(prof["card"] == name and prof["nvidia_smi"] == card, "profile_step record: card")
+    log(f"11d: profile_step's medians contradict: {prof['unresolved']}" if prof["unresolved"]
+        else "11d: profile_step: every part reads at most what contains it")
+    ms = lambda x: "not measured" if x is None else f"{x:.3f} ms"
+    for k, v in rows.items():
+        log(f"11d: {k}: host {ms(v['host_ms'])}, events {ms(v['event_ms'])}, device busy "
+            f"{ms(v['device_busy_ms'])}, dispatch {ms(v['dispatch_ms'])}; card: {card}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=Path, metavar="FILE",
@@ -2898,7 +2995,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     t_box = time.perf_counter()
     rows.append(drive_boxed(device, card, check))
-    log(f"section 10 in {time.perf_counter() - t_box:.1f} s; the script in "
+    log(f"section 10 in {time.perf_counter() - t_box:.1f} s")
+    torch.cuda.empty_cache()
+    t_scripts = time.perf_counter()
+    drive_bench_scripts(device, card, check)
+    log(f"section 11 in {time.perf_counter() - t_scripts:.1f} s; the script in "
         f"{time.perf_counter() - t_start:.1f} s")
     if args.profile:
         args.profile.parent.mkdir(parents=True, exist_ok=True)

@@ -32,15 +32,22 @@ The Riccati re-solve runs on the stagewise path's own inputs
 factorization and linear terms at B=512 (the main ADMM), at the cleanup's
 B=64 and on the first 8 rows of those (the long-horizon envelope's B=64
 cleanup), and on the first 128, 256 and 384 rows of the B=512 ones (where
-the plan's chunk count falls to one).  The old side is OLD_ROOT's
-`riccati_bwd_f32` then `riccati_fwd_f32` (two launches: a build of the
-one-warp-a-scenario sweeps, before `riccati_split_f32` replaced them); the
-new side is what `lqr_resolve_lanes` runs on a phase's `prepare_resolve`
-(the preparation is made once, outside the timing, as the solver makes it
-once a phase).  Each sweep is also timed alone, and each side's pair held
-against the plain sweeps within TOL_RICCATI.  The new build's re-solve is
-also timed at other chunk lengths on the same inputs (`chunk_ms`), and its
-preparation alone.
+the plan's chunk count falls to one).  Both sides are called through the
+same ctypes code (`split_prepare`, `call_split`).  The new side is this
+build's `riccati_split_f32` on its `riccati_prepare_f32` at the chunk its
+`riccati_plan` gives, as `lqr_resolve_lanes` runs it on a phase's
+`prepare_resolve` (the preparation is made once, outside the timing, as the
+solver makes it once a phase).  The old side is chosen by what OLD_ROOT's
+library exports: where it has `riccati_split_f32` (with `riccati_plan`,
+`riccati_staged` and `riccati_prepare_f32`), OLD_ROOT's own split re-solve
+on its own preparation and plan ("split"); where it has only
+`riccati_bwd_f32` and `riccati_fwd_f32` (a build of the
+one-warp-a-scenario sweeps, before `riccati_split_f32` replaced them),
+those two launches ("pair").  Each result names the old side that ran
+(`old_side`).  Each sweep is also timed alone, each side's pair held
+against the plain sweeps within TOL_RICCATI, and both preparations timed.
+The new build's re-solve is also timed at other chunk lengths on the same
+inputs (`chunk_ms`).
 
 Prints the card's name and power limit and one JSON line per case.
 """
@@ -68,12 +75,21 @@ ADMM_ARGS = ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 4
                 ctypes.c_void_p])
 ALLOC_ARGS = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4
               + [ctypes.c_void_p])
-RICCATI_BWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-RICCATI_FWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-# {source: {launcher: argtypes}}
+# the split re-solve `riccati_split_f32`, as `solvers/lanes_riccati.py` calls it
+RICCATI_SPLIT = {"riccati_plan": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+                 "riccati_staged": [ctypes.c_int, ctypes.c_int],
+                 "riccati_prepare_f32": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+                 + [ctypes.c_void_p],
+                 "riccati_split_f32": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                 + [ctypes.c_void_p]}
+# the two sweep kernels of earlier builds
+RICCATI_PAIR = {"riccati_bwd_f32": [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int,
+                                                            ctypes.c_void_p],
+                "riccati_fwd_f32": [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int,
+                                                            ctypes.c_void_p]}
+# {source: {launcher: argtypes}}; a launcher OLD_ROOT's library lacks is left out
 ARGS = {"condense": {"condense_f32": CONDENSE_ARGS}, "admm": {"admm_f32": ADMM_ARGS},
-        "alloc": {"alloc_f32": ALLOC_ARGS},
-        "riccati": {"riccati_bwd_f32": RICCATI_BWD_ARGS, "riccati_fwd_f32": RICCATI_FWD_ARGS}}
+        "alloc": {"alloc_f32": ALLOC_ARGS}, "riccati": {**RICCATI_SPLIT, **RICCATI_PAIR}}
 # chunk lengths the re-solve is also timed at (Nt=240: 1 to 16 chunks)
 RICCATI_CHUNKS = (240, 120, 80, 60, 40, 30, 24, 20, 15)
 RICCATI_MIDDLE = (128, 256, 384)  # rows of the B=512 capture, timed as well
@@ -103,11 +119,26 @@ def build_old(root: Path, names) -> dict:
         lib = ctypes.CDLL(str(so))
         fns[name] = {}
         for fn_name, argtypes in ARGS[name].items():
+            if not hasattr(lib, fn_name):
+                continue
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             fns[name][fn_name] = fn
+        if not (all(k in fns[name] for k in ARGS[name]) or name == "riccati"
+                and old_riccati_side(fns[name]) is not None):
+            raise RuntimeError(f"old {name}: the library lacks launchers of {sorted(ARGS[name])}")
     return fns
+
+
+def old_riccati_side(fns) -> str | None:
+    """'split' where OLD_ROOT exports the split re-solve, 'pair' where only
+    the two sweep kernels, else None."""
+    if all(k in fns for k in RICCATI_SPLIT):
+        return "split"
+    if all(k in fns for k in RICCATI_PAIR):
+        return "pair"
+    return None
 
 
 def call_condense(fn, A, Bm, d):
@@ -175,8 +206,58 @@ def alloc_phases(fn, args, device) -> dict:
             "admm_us_per_iter": 1e3 * (t[(0, admm)] - t[(0, 0)]) / admm}
 
 
+def split_prepare(fns, f, chunk=None):
+    """A side's preparation of factorization `f` (`riccati_prepare_f32`) at
+    `chunk` stages a chunk, by default its own `riccati_plan`'s: (rec, psi,
+    chunk)."""
+    from ft_mpc_torch import kernels
+    from ft_mpc_torch.solvers.lanes_riccati import REC
+
+    B, Nt = f.F.shape[:2]
+    if chunk is None:
+        plan = (ctypes.c_int * 7)()
+        fns["riccati_plan"](B, Nt, plan)
+        if plan[6]:
+            raise RuntimeError(f"riccati_plan: CUDA error {plan[6]}")
+        chunk = plan[0]
+    C = -(-Nt // chunk)
+    rec = torch.empty((B, Nt, REC), dtype=torch.float32, device=f.F.device)
+    psi = (torch.empty((B, C, 13, 13), dtype=torch.float32, device=f.F.device)
+           if C > 1 else None)
+    err = fns["riccati_prepare_f32"](f.F.data_ptr(), f.B.data_ptr(), f.K.data_ptr(),
+                                     f.Quu_inv.data_ptr(), f.PC.data_ptr(), f.c.data_ptr(),
+                                     rec.data_ptr(), 0 if psi is None else psi.data_ptr(),
+                                     B, Nt, chunk, kernels.stream_of(f.F))
+    if err:
+        raise RuntimeError(f"riccati_prepare_f32: CUDA error {err}")
+    return rec, psi, chunk
+
+
+def call_split(fns, prep, q, r, qN, x0, parts=3, ks=None):
+    """A side's `riccati_split_f32` on its preparation: parts 3 (X, U), 1 ks,
+    2 (X, U) from `ks`; ks stays on the chip where the side stages it."""
+    from ft_mpc_torch import kernels
+
+    rec, psi, chunk = prep
+    B, Nt = rec.shape[:2]
+    dev = rec.device
+    if parts == 1 or (parts == 3 and not fns["riccati_staged"](Nt, chunk)):
+        ks = torch.empty((B, Nt, 6), dtype=torch.float32, device=dev)
+    X = U = None
+    if parts & 2:
+        X = torch.empty((B, Nt + 1, 13), dtype=torch.float32, device=dev)
+        U = torch.empty((B, Nt, 6), dtype=torch.float32, device=dev)
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    err = fns["riccati_split_f32"](rec.data_ptr(), ptr(psi), ptr(q), ptr(r), ptr(qN), ptr(x0),
+                                   ptr(ks), ptr(X), ptr(U), B, Nt, chunk, parts,
+                                   kernels.stream_of(rec))
+    if err:
+        raise RuntimeError(f"riccati_split_f32: CUDA error {err}")
+    return ks if parts == 1 else (X, U)
+
+
 def old_bwd(fns, f, q, r, qN):
-    """OLD_ROOT's backward sweep: ks."""
+    """OLD_ROOT's backward sweep kernel (builds before the split re-solve): ks."""
     from ft_mpc_torch import kernels
 
     B, Nt = f.F.shape[:2]
@@ -191,7 +272,7 @@ def old_bwd(fns, f, q, r, qN):
 
 
 def old_fwd(fns, f, ks, x0):
-    """OLD_ROOT's forward sweep: (X, U)."""
+    """OLD_ROOT's forward sweep kernel (builds before the split re-solve): (X, U)."""
     from ft_mpc_torch import kernels
 
     B, Nt = f.F.shape[:2]
@@ -208,6 +289,7 @@ def old_fwd(fns, f, ks, x0):
 def riccati_results(old, device):
     """The Riccati re-solve, old build against new, on the stagewise path's
     captured inputs (module docstring); yields one result a shape."""
+    from ft_mpc_torch import kernels
     from ft_mpc_torch.solvers import lanes_riccati as lr
     from ft_mpc_torch.solvers.riccati import (
         LQRFactorization,
@@ -227,42 +309,49 @@ def riccati_results(old, device):
     cases += [(f"the stagewise path's first {n} rows", first(cap[cs.SW_BATCH], n))
               for n in RICCATI_MIDDLE]
     del sw, warm, cap
+    new = {k: kernels.function("riccati", k, a) for k, a in RICCATI_SPLIT.items()}
+    fns = old["riccati"]
+    side = old_riccati_side(fns)
     for label, (fact, q, r, qN, x0) in cases:
         f = LQRFactorization(*(t.float().contiguous() for t in fact))
         q, r, qN, x0 = (t.float().contiguous() for t in (q, r, qN, x0))
         B, Nt = f.F.shape[:2]
         ks_p = resolve_bwd_plain(f.F, f.B, f.K, f.Quu_inv, f.PC, q, r, qN)
         ref = (ks_p, *resolve_fwd_plain(f.F, f.B, f.c, f.K, ks_p, x0))
-        prep = lr.prepare_resolve(f)
-        fns = old["riccati"]
-        new_pair = lambda: lr.lqr_resolve_lanes(prep, q, r, qN, x0)
-        old_pair = lambda: old_fwd(fns, f, old_bwd(fns, f, q, r, qN), x0)
-        new_bwd = lambda: lr.riccati_split_lanes(prep, q, r, qN, x0, parts=1)
-        new_fwd = lambda: lr.riccati_split_lanes(prep, q, r, qN, x0, parts=2, ks=ks_p)
-        ks_o = old_bwd(fns, f, q, r, qN)
-        got_old = (ks_o, *old_fwd(fns, f, ks_o, x0))
-        got_new = (new_bwd(), *new_pair())
+        sides = {"new": (new, split_prepare(new, f))}
+        if side == "split":
+            sides["old"] = (fns, split_prepare(fns, f))
+        run = {name: {"pair": lambda s=s: call_split(*s, q, r, qN, x0),
+                      "bwd": lambda s=s: call_split(*s, q, r, qN, None, parts=1),
+                      "fwd": lambda s=s: call_split(*s, None, None, None, x0, parts=2,
+                                                    ks=ks_p)}
+               for name, s in sides.items()}
+        if side == "pair":
+            run["old"] = {"pair": lambda: old_fwd(fns, f, old_bwd(fns, f, q, r, qN), x0),
+                          "bwd": lambda: old_bwd(fns, f, q, r, qN),
+                          "fwd": lambda: old_fwd(fns, f, ks_p, x0)}
+        got = {name: (r_["bwd"](), *r_["pair"]()) for name, r_ in run.items()}
         bounds = cs.riccati_bounds(f.F, f.B, f.c, f.K, f.Quu_inv, f.PC, q, r, qN, x0)
-        res = {"kernel": "riccati", "shape": f"{label}: B={B} Nt={Nt}",
+        res = {"kernel": "riccati", "shape": f"{label}: B={B} Nt={Nt}", "old_side": side,
                "plan": lr.riccati_plan(B, Nt),
                "bound_ms": bounds["pair"][0], "bound_by": bounds["pair"][1],
-               "old_max_rel_err": cs.rel_err(got_old, ref)[1],
-               "new_max_rel_err": cs.rel_err(got_new, ref)[1],
-               **in_turns(old_pair, new_pair, 20, device)}
-        for key, o, n in (("bwd", lambda: old_bwd(fns, f, q, r, qN), new_bwd),
-                          ("fwd", lambda: old_fwd(fns, f, ks_p, x0), new_fwd)):
-            t = in_turns(o, n, 20, device)
+               "old_max_rel_err": cs.rel_err(got["old"], ref)[1],
+               "new_max_rel_err": cs.rel_err(got["new"], ref)[1],
+               **in_turns(run["old"]["pair"], run["new"]["pair"], 20, device)}
+        for key in ("bwd", "fwd"):
+            t = in_turns(run["old"][key], run["new"][key], 20, device)
             res[key] = {"old_ms": t["old_ms"], "new_ms": t["new_ms"], "speedup": t["speedup"],
                         "bound_ms": bounds[key][0]}
-        res["prepare_ms"] = cs.time_ms(lambda: lr.riccati_prepare_lanes(f, prep.chunk), 20,
-                                       device, device_only=True)
+        for name, (side_fns, prep) in sides.items():
+            res[f"{name}_prepare_ms"] = cs.time_ms(
+                lambda: split_prepare(side_fns, f, prep[2]), 20, device, device_only=True)
         chunk_ms = {}
         for L in RICCATI_CHUNKS:
             if L > Nt:
                 continue
             try:  # a chunk count whose block does not fit is refused (None)
-                p_L = lr.prepared(f, L)
-                chunk_ms[L] = cs.time_ms(lambda: lr.riccati_split_lanes(p_L, q, r, qN, x0), 20,
+                p_L = split_prepare(new, f, L)
+                chunk_ms[L] = cs.time_ms(lambda: call_split(new, p_L, q, r, qN, x0), 20,
                                          device, device_only=True)
             except RuntimeError:
                 chunk_ms[L] = None

@@ -749,3 +749,19 @@ def tree_to(tree, device):
     from torch.utils._pytree import tree_map
 
     return tree_map(lambda x: x.to(device), tree)
+
+
+def test_bench_entry_on_card(dev):
+    """`ft_mpc_torch.benchmarks.bench` at B=2048 on the card, 1 warm-up and 1
+    timed window of 10 chained steps: no failed gate (finite outputs,
+    max_term_gap <= 0.4, the gap rows within bench.py's pinned set), the
+    card named, launches 3 / 5 / 1 a step."""
+    from ft_mpc_torch.benchmarks import bench
+
+    rec = bench.main(device=dev, windows=1)
+    assert rec["failed_gates"] == []
+    assert rec["batch"] == 2048 and rec["pinned_gap_rows"] is not None
+    assert rec["card"] == torch.cuda.get_device_name(dev) and rec["power_limit"]
+    per = rec["launches_per_step"]
+    assert (per["condense_lanes"], per["admm_lanes"], per["allocate_thrusters_lanes"]) == (3, 5, 1)
+    assert per["riccati_bwd_lanes"] == per["riccati_prepare_lanes"] == 0
