@@ -154,6 +154,27 @@
      at B=4096: host and event times for each component, the device-busy
      time and peak device memory of the full step, (a) and (h).
 
+12. Drives the census scripts of `ft_mpc_torch/benchmarks/`, each record
+   printed and gated:
+   - 12a: the sanitizer (`sanitizer.inputs`, `sanitizer.run`) over the whole
+     census, B=137 rows, 4 chained windows of 50 steps of
+     `batched_rollout_lanes` (every history field finite at every step),
+     then the per-scenario rollout on (10, 11) for 50 steps; its gates
+     (every pattern contracts, max_term_gap_final <= 1e-3), launches
+     3 / 4 / 1 a step with one more condensing a window (zeroed before the
+     windows, read after), none on the per-scenario path; kernels 1-3 held
+     and timed on the last batched step's inputs at B=137, and ADMM on its
+     cleanup's K=16 rows at 300 iterations;
+   - 12b: the census cache build (`build_terminal_cache.main`) on healthy,
+     (0), (8, 9) and (12, 13) into a temporary directory: every row equal to
+     the committed entry (orbit, emax, r_empc, terminal set; the grid's
+     points decided otherwise on the threshold, the fit on the JAX run's
+     points within 1e-3), counts 2 / 1 / 1, the committed cache untouched;
+   - 12c: `scaling.main`: the bench at B=512 and 2048 with 2 timed windows
+     (no failed gate, 3 / 5 / 1 launches a step) and the sharded step on 1
+     and 2 shards of the card, 2 chained steps each (2 / 2 / 1 launches a
+     step a shard).
+
 Prints the card's name and power limit, one JSON line with every kernel's
 numbers, and as its last line {"ok": true, "device": {...}}.  Exits with a
 non-zero code and prints no result without a CUDA device, or when the
@@ -316,6 +337,13 @@ BENCH_FIELDS = (
     "warmup_windows", "init_ms", "bank_build_s", "meets_control_period", "newton_rescues",
     "launches_per_step", "failed_gates",
 )
+# section 12: the sanitizer, the census cache build and the scaling sweeps
+CENSUS_BUILD = ((), (0,), (8, 9), (12, 13))  # 12b: default orbit twice, searched, fallback
+CENSUS_BUILD_COUNTS = (2, 1, 1)  # certified at the default orbit, at a searched one, not
+UNCERTIFIED = [[12, 13], [12, 15], [13, 14], [14, 15]]  # the committed entries' fallbacks
+SWEEP_BATCHES = (512, 2048)  # 12c: the batch sweep's points
+SWEEP_WINDOWS = 2  # timed windows of the bench at each point (12 in the bench)
+SWEEP_REPS = 2  # chained steps of each mesh of the device sweep (5 in the script)
 CONDENSED_KERNELS = ("condense_lanes", "admm_lanes", "allocate_thrusters_lanes")
 STAGEWISE_KERNELS = ("riccati_bwd_lanes", "riccati_fwd_lanes", "riccati_prepare_lanes",
                      "allocate_thrusters_lanes")
@@ -845,8 +873,9 @@ def check_alloc_main(ctx: Ctx, out) -> dict:
     }
 
 
-def hold_alloc_main(c: Ctx, c_out, path: str, check) -> None:
-    """Kernel 3 on a path's own wrenches, with the gates of the C1 rule."""
+def hold_alloc_main(c: Ctx, c_out, path: str, check) -> dict:
+    """Kernel 3 on a path's own wrenches, with the gates of the C1 rule;
+    returns the comparison."""
     am = check_alloc_main(c, c_out)
     log(f"alloc on the {path} path's wrenches (B={am['rows']}; control: plain "
         "float32 vs plain float64): " + json.dumps(am))
@@ -862,6 +891,7 @@ def hold_alloc_main(c: Ctx, c_out, path: str, check) -> None:
     check(all(e > FALLBACK_EQ_ERR / 2 for e in am["fallback_flips_kept_eq_err"]),
           f"allocation kernel, {path} path: the fallback choice differs on a row "
           "far from its threshold")
+    return am
 
 
 def time_alloc_main(ctx: Ctx, out, label: str) -> dict:
@@ -1792,25 +1822,12 @@ def copy_cache(dest: Path) -> Path:
     return dest
 
 
-def grid_empc(plant_host, ff, hull, orbit, tuning):
-    """The eMPC whose grid `compute_terminal_ingredients` samples at `orbit`."""
-    from ft_mpc_torch.controllers.spiral_params import SpiralParameters
-    from ft_mpc_torch.terminal import pipeline as tpl
-
-    D, _, mass, inertia, dt = plant_host
-    sp = SpiralParameters.compute(mass, inertia, D @ ff, orbit["omega_des"], orbit["r_dir"],
-                                  orbit["f_virt_mag"])
-    return tpl.axis_empc(hull, sp.M, np.concatenate([sp.f_virt, np.zeros(3)]), sp.omega_des,
-                         sp.r, inertia, dt, tuning["Q"], tuning["R"], tuning["k_omega"],
-                         time_scaling=float(tuning["time_scaling"]))[2]
-
-
 def committed_masks() -> dict:
     """The committed float32 entries' feasible grid points (the JAX package's
-    run; `ft_mpc_torch/data/terminal_grid_masks.npz`)."""
-    with np.load(REPO / "ft_mpc_torch" / "data" / "terminal_grid_masks.npz") as z:
-        n = int(z["n_points"])
-        return {k: np.unpackbits(z[k])[:n].astype(bool) for k in z.files if k != "n_points"}
+    runs; `ft_mpc_torch/data/terminal_grid_masks.npz`)."""
+    from ft_mpc_torch.benchmarks.build_terminal_cache import load_grid_masks
+
+    return {k: m.feasible for k, m in load_grid_masks().items()}
 
 
 def pipeline_phase(device, card: str, check, tmp: Path) -> list:
@@ -1822,26 +1839,29 @@ def pipeline_phase(device, card: str, check, tmp: Path) -> list:
     (fitted on the committed run's points where they differ).  Also times
     `sample_value_function`'s grid on the card (CUDA events; its host
     numpy included)."""
-    from ft_mpc_torch.api import DEFAULT_TUNING, build_scenario_with_terminal, terminal_cache_path
-    from ft_mpc_torch.geometry.zonotope import attainable_wrench_polytope
-    from ft_mpc_torch.ops.dynamics import BodyParams, host_array
+    from ft_mpc_torch.api import (
+        DEFAULT_TUNING,
+        build_scenario_with_terminal,
+        empc_terminal_ingredients,
+        terminal_cache_path,
+    )
+    from ft_mpc_torch.ops.dynamics import BodyParams
     from ft_mpc_torch.terminal import pipeline as tpl
     from ft_mpc_torch.utils.faults import BrokenThruster
 
     plant = BodyParams.default(0.1, dtype=torch.float32, device=device)
-    host = (host_array(plant.D), float(host_array(plant.max_thrust)),
-            float(host_array(plant.mass)), host_array(plant.inertia),
-            float(host_array(plant.dt)))
     masks = committed_masks()
     rows = []
     for name, pat in PIPELINE_PATTERNS:
         faults = [BrokenThruster(i, 1.0) for i in pat]
         cache = tmp / f"pipeline_{name}"
         t0 = time.perf_counter()
-        build_scenario_with_terminal(plant, faults, DEFAULT_TUNING, cache_dir=cache,
-                                     device=device)
+        built = empc_terminal_ingredients(plant, faults, DEFAULT_TUNING, cache)
         sync(device)
         host_s = time.perf_counter() - t0
+        # the scenario from the entry the miss wrote (a hit now)
+        build_scenario_with_terminal(plant, faults, DEFAULT_TUNING, cache_dir=cache,
+                                     device=device)
         (entry,) = cache.iterdir()
         ti = tpl.load_terminal_ingredients(entry)
         ref = tpl.load_terminal_ingredients(terminal_cache_path(plant, faults, DEFAULT_TUNING))
@@ -1864,14 +1884,10 @@ def pipeline_phase(device, card: str, check, tmp: Path) -> list:
             row["own_fit_close"] = bool(np.array_equal(ti.P9, ref.P9)
                                         and np.array_equal(ti.p9, ref.p9) and ti.c == ref.c)
         else:
-            ff = np.zeros(16)
-            ff[list(pat)] = host[1]
-            hull = attainable_wrench_polytope(host[0], host[1], (ff > 0).astype(float),
-                                              ff / host[1])
-            empc = grid_empc(host, ff, hull, ref.meta["orbit"], DEFAULT_TUNING)
-            pts, V, r_prim = tpl.value_function_grid(empc, 3, device=device)
+            g = built.grid
+            pts, V, r_prim = g.points, g.values, g.r_prim
             row["sample_value_function_ms"] = time_ms(
-                lambda: tpl.value_function_grid(empc, 3, device=device), 3, device)
+                lambda: tpl.value_function_grid(g.empc, g.horizon, device=device), 3, device)
             mine = r_prim < tpl.FEASIBLE_R_PRIM
             differ = np.flatnonzero(mine != masks[name])
             row["grid_points_decided_otherwise"] = pts[differ].round(6).tolist()
@@ -2872,6 +2888,150 @@ def drive_bench_scripts(device, card: str, check) -> None:
             f"{ms(v['device_busy_ms'])}, dispatch {ms(v['dispatch_ms'])}; card: {card}")
 
 
+# ---------------------------------------------------------------------------
+# section 12: the sanitizer, the census cache build and the scaling sweeps
+# ---------------------------------------------------------------------------
+
+
+def kernel_agrees(r: dict) -> bool:
+    """A kernel row within its tolerance of its plain version."""
+    tol = r.get("tol")
+    ok = (r["max_abs_err"] <= tol) if tol is not None else (r["max_rel_err"] <= r["tol_rel"])
+    return bool(ok and np.isfinite(r["max_abs_err"]) and r.get("branches_equal", True))
+
+
+def sanitizer_phase(device, card: str, check) -> list:
+    """12a: the sanitizer over the census (B=137, 4 windows of 50 steps, then
+    the per-scenario rollout), its gates and launches; kernels 1-3 held and
+    timed on the last batched step's inputs (and ADMM on its cleanup's
+    rows at 300 iterations).  Returns the kernel rows."""
+    from ft_mpc_torch.benchmarks import sanitizer
+
+    s = sanitizer.inputs(device)
+    try:
+        rec = sanitizer.run(s)
+    except sanitizer.NonFiniteError as e:
+        check(False, f"sanitizer: {e}")
+        return []
+    log("section 12, sanitizer: " + json.dumps(rec))
+    log(f"12a: sanitizer (B={rec['batch']}, {rec['steps']} steps): every history field "
+        f"finite; contracting {rec['n_contracting_200_steps']} in 200 steps, "
+        f"{rec['n_contracting_50_steps']} in 50; ratio min / median / max "
+        f"{rec['contraction_200_min_med_max']}; max_term_gap_final "
+        f"{rec['max_term_gap_final']:.3e}; a step p50 {rec['step_ms_p50']:.3f} ms, p99 "
+        f"{rec['step_ms_p99']:.3f} ms; {rec['lanes_rollout_s']:.1f} s for the 200 steps, "
+        f"{rec['per_scenario_rollout_s']:.1f} s for the per-scenario "
+        f"{rec['per_scenario_steps']}; {rec['newton_rescues']} newton_kinv rescues "
+        f"({rec['newton_rescues_nonfinite']} with a non-finite residual); "
+        f"launches a step {rec['launches_per_step']}; card: {card}")
+    check(not rec["failed_gates"], f"sanitizer gates failed: {rec['failed_gates']}")
+    check(rec["batch"] == 137 and rec["steps"] == 200 and rec["all_finite"],
+          f"sanitizer ran {rec['batch']} rows, {rec['steps']} steps")
+    off = {k: v for k, v in rec["launches"].items() if v != rec["launches_expected"].get(k, 0)}
+    check(not off, f"sanitizer: launches {off}, expected {rec['launches_expected']}")
+    check(not any(rec["per_scenario_launches"].values()),
+          f"sanitizer: the per-scenario rollout launched {rec['per_scenario_launches']}")
+    check(rec["uncertified_patterns"] == UNCERTIFIED,
+          f"sanitizer: uncertified patterns {rec['uncertified_patterns']}")
+
+    last = s.last_step
+    ctx = Ctx(device, torch.float32, rec["batch"], x0=last.x0.cpu().numpy(), bank=s.bank)
+    ctx.cfg, ctx.x_ref, ctx.u_ref = s.cfg, last.x_ref, last.u_ref
+    out = ctx.step(last.warm)  # the last step again, for its wrenches and residuals
+    sync(device)
+    k = s.cfg.cleanup_k
+    rows = [check_condense(ctx, last.warm),
+            check_admm(ctx, admm_inputs(ctx, last.warm, ctx.weights), s.cfg.admm.iters,
+                       f"census B={rec['batch']} T=64"),
+            check_admm(ctx, admm_inputs(ctx, last.warm, ctx.weights,
+                                        rows=torch.topk(out.info.r_prim, k).indices),
+                       s.cfg.cleanup_iters, f"census cleanup K={k}", reps=3),
+            time_alloc_main(ctx, out, "census")]
+    am = hold_alloc_main(ctx, out, "census", check)
+    rows[-1].update(max_abs_err=am["u_err"], tol=TOL_ALLOC_MAIN)
+    for r in rows:
+        r["shape"] = f"sanitizer's last step: {r['shape']}"
+        r["launches"] = rec["launches"][r["name"]]  # both ADMM shapes share the count
+        log("kernel: " + json.dumps(with_share(r)))
+        check(kernel_agrees(r), f"{r['name']} ({r['shape']}) disagrees with its plain version")
+    return rows
+
+
+def census_build_phase(device, card: str, check, tmp: Path) -> dict:
+    """12b: the census cache build on CENSUS_BUILD into a temporary
+    directory, every row against the committed entry; the committed cache
+    untouched."""
+    from ft_mpc_torch.api import TERMINAL_CACHE
+    from ft_mpc_torch.benchmarks import build_terminal_cache
+    from ft_mpc_torch.utils.faults import BrokenThruster
+
+    before = {p.name: p.stat().st_mtime_ns for p in TERMINAL_CACHE.iterdir()}
+    rec = build_terminal_cache.main(
+        out_dir=tmp / "census_cache", device=device,
+        patterns=[[BrokenThruster(i, 1.0) for i in p] for p in CENSUS_BUILD])
+    log("section 12, census cache build: " + json.dumps(rec))
+    for row in rec["rows"]:
+        c = row["vs_committed"]
+        log(f"12b: {row['pattern']}: {row['secs']:.3f} s on the host; certified "
+            f"{row['certified']}, default orbit {row['orbit_default']}; committed entry "
+            f"{'equal' if c['ok'] else 'DIFFERS'}; points decided otherwise "
+            f"{c.get('grid_points_decided_otherwise')}; own fit {c['own_fit_rel_diff']:.3e}, "
+            f"fit on the JAX run's points {c.get('fit_on_jax_points_rel_diff')}; card: {card}")
+    check(not rec["failed_rows"], f"census cache build: rows differ from the committed "
+          f"entries: {rec['failed_rows']}")
+    counts = (rec["certified_default_orbit"], rec["certified_searched_orbit"],
+              rec["uncertifiable"])
+    check(counts == CENSUS_BUILD_COUNTS, f"census cache build: counts {counts}")
+    check(rec["n_compared_with_jax_points"] == 3,
+          f"census cache build: {rec['n_compared_with_jax_points']} grids against JAX's")
+    check({p.name: p.stat().st_mtime_ns for p in TERMINAL_CACHE.iterdir()} == before,
+          "census cache build: the committed cache changed")
+    return rec
+
+
+def scaling_phase(device, card: str, check) -> dict:
+    """12c: the batch sweep at SWEEP_BATCHES with SWEEP_WINDOWS windows and
+    the device sweep on 1 and 2 shards of the card, SWEEP_REPS steps each."""
+    from ft_mpc_torch.benchmarks import scaling
+
+    rec = scaling.main(batches=SWEEP_BATCHES, reps=SWEEP_REPS, windows=SWEEP_WINDOWS,
+                       device=device)
+    log("section 12, scaling: " + json.dumps(rec))
+    for B, r in rec["batch_sweep"].items():
+        log(f"12c: batch sweep B={B}: {r['solves_per_s']:.1f} solves/s, p50 "
+            f"{r['ms_per_step']:.3f} ms, p99 {r['latency_p99_ms']:.3f} ms, max_r_prim "
+            f"{r['max_r_prim']:.3e}; card: {card}")
+        check(not r["failed_gates"], f"scaling B={B}: bench gates failed {r['failed_gates']}")
+        off = launches_off(r["launches_per_step"], LOOP_LAUNCHES)
+        check(not off, f"scaling B={B}: launches a step other than 3 / 5 / 1: {off}")
+    rows = rec["device_sweep"]["results"]
+    check([r["devices"] for r in rows][:1] == [["cuda:0"]]
+          and ["cuda:0", "cuda:0"] in [r["devices"] for r in rows],
+          f"scaling: meshes {[r['devices'] for r in rows]}")
+    for r in rows:
+        log(f"12c: device sweep {r['devices']}: {r['solves_per_s']:.1f} solves/s, "
+            f"{r['ms_per_step']:.3f} ms a step, efficiency {r['efficiency']:.4f}, max_r_prim "
+            f"{r['max_r_prim']:.3e}; card: {card}")
+        n = r["shards"]
+        want = {"condense_lanes": 2 * n, "admm_lanes": 2 * n, "allocate_thrusters_lanes": n}
+        off = launches_off(r["launches_per_step"], want)
+        check(not off and np.isfinite(r["max_r_prim"]),
+              f"scaling {r['devices']}: launches a step {off}, max_r_prim {r['max_r_prim']}")
+    return rec
+
+
+def drive_census_scripts(device, card: str, check) -> list:
+    """Section 12; returns the sanitizer's kernel rows."""
+    import tempfile
+
+    rows = sanitizer_phase(device, card, check)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        census_build_phase(device, card, check, Path(tmp))
+    scaling_phase(device, card, check)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=Path, metavar="FILE",
@@ -2953,10 +3113,7 @@ def main(argv=None) -> int:
     for r in rows + extra:
         log("kernel: " + json.dumps(with_share(r)))
     for r in rows + extra:
-        tol = r.get("tol")
-        ok = (r["max_abs_err"] <= tol) if tol is not None else (r["max_rel_err"] <= r["tol_rel"])
-        check(ok and np.isfinite(r["max_abs_err"]) and r.get("branches_equal", True),
-              f"{r['name']} ({r['shape']}) disagrees with its plain version")
+        check(kernel_agrees(r), f"{r['name']} ({r['shape']}) disagrees with its plain version")
     for r in rows:
         r["launches"] = main_res["launches"][r["name"]]
 
@@ -2982,25 +3139,24 @@ def main(argv=None) -> int:
               f"card step differs from the CPU port on {label}: {step}")
 
     del ctx, warm, out  # the condensed path's tensors, before the long horizon
-    torch.cuda.empty_cache()
-    rows += drive_stagewise(device, card, check, profiles if args.profile else None)
-    torch.cuda.empty_cache()
-    drive_closed_loop(device, card, check, profiles if args.profile else None)
-    torch.cuda.empty_cache()
-    rows.append(drive_port_banks(device, card, check))
-    torch.cuda.empty_cache()
-    drive_slice_api(device, card, check)
-    torch.cuda.empty_cache()
-    drive_sharding(device, card, check, main_res["p50_ms"])
-    torch.cuda.empty_cache()
-    t_box = time.perf_counter()
-    rows.append(drive_boxed(device, card, check))
-    log(f"section 10 in {time.perf_counter() - t_box:.1f} s")
-    torch.cuda.empty_cache()
-    t_scripts = time.perf_counter()
-    drive_bench_scripts(device, card, check)
-    log(f"section 11 in {time.perf_counter() - t_scripts:.1f} s; the script in "
-        f"{time.perf_counter() - t_start:.1f} s")
+    log(f"sections 1-4 in {time.perf_counter() - t_start:.1f} s")
+    sections = (
+        (5, lambda: rows.extend(drive_stagewise(device, card, check,
+                                                profiles if args.profile else None))),
+        (6, lambda: drive_closed_loop(device, card, check, profiles if args.profile else None)),
+        (7, lambda: rows.append(drive_port_banks(device, card, check))),
+        (8, lambda: drive_slice_api(device, card, check)),
+        (9, lambda: drive_sharding(device, card, check, main_res["p50_ms"])),
+        (10, lambda: rows.append(drive_boxed(device, card, check))),
+        (11, lambda: drive_bench_scripts(device, card, check)),
+        (12, lambda: rows.extend(drive_census_scripts(device, card, check))),
+    )
+    for n, drive in sections:
+        torch.cuda.empty_cache()
+        t_section = time.perf_counter()
+        drive()
+        log(f"section {n} in {time.perf_counter() - t_section:.1f} s")
+    log(f"the script in {time.perf_counter() - t_start:.1f} s")
     if args.profile:
         args.profile.parent.mkdir(parents=True, exist_ok=True)
         args.profile.write_text("\n".join(profiles))

@@ -105,6 +105,7 @@ def zero_counters() -> None:
     for fn in (admm_lanes, riccati_split_lanes):
         fn.launches_by_design = dict.fromkeys(fn.launches_by_design, 0)
     newton_kinv.rescues = 0
+    newton_kinv.rescues_nonfinite = 0
 
 
 def read_counters() -> dict:
@@ -113,7 +114,8 @@ def read_counters() -> dict:
 
 def read_launches(steps: int) -> dict:
     """The counters since `zero_counters`, over `steps` steps: launches,
-    launches a step, by design, and `newton_kinv` rescues."""
+    launches a step, by design, and `newton_kinv` rescues (all, and those
+    taken with a non-finite residual)."""
     from ft_mpc_torch.solvers.lanes_qp import admm_lanes, newton_kinv
     from ft_mpc_torch.solvers.lanes_riccati import riccati_split_lanes
 
@@ -124,6 +126,7 @@ def read_launches(steps: int) -> dict:
         "admm_launches_by_design": dict(admm_lanes.launches_by_design),
         "riccati_launches_by_design": dict(riccati_split_lanes.launches_by_design),
         "newton_rescues": newton_kinv.rescues,
+        "newton_rescues_nonfinite": newton_kinv.rescues_nonfinite,
     }
 
 

@@ -14,7 +14,10 @@ bank, the seed-0 tumbling states):
   (f) `solve_mpc_qp_lanes` on the fixed QP of (e), as an SQP iteration
       calls it (carried duals, rho and K^-1, Newton refresh);
   (g) `exact_kinv` and `newton_kinv` on that QP's metric;
-  (h) the full step at B=4096 and 8192 (the bank tiled, bench.py's states).
+  (h) the full step at B=4096 and 8192 (the bank tiled, bench.py's states);
+  (i) `_merit_alpha`, the line search, on (e)'s trajectory and the step
+      (f)'s solution gives it (`benchmarks/profile_batch.py:163-179` times
+      it on random steps).
 
 The warm start is the one after the bench's warm-up window (10 chained
 steps from `init_warmstart_batch`).  Each component runs once untimed; then
@@ -77,6 +80,7 @@ CONTAINS = (
     ("(f) solve_mpc_qp_lanes", "(b0) sqp_solve_batch without cleanup"),
     ("(d) _linearize", "(e) _assemble_condensed_batch"),
     (CLEANUP, "(b0) sqp_solve_batch without cleanup"),
+    ("(i) _merit_alpha", "(b0) sqp_solve_batch without cleanup"),
 )
 
 
@@ -217,8 +221,14 @@ def components(s, out) -> dict:
     X = torch.cat([s.c0[:, None], w.X[:, 1:]], dim=1)
     x_ref = sp._per_scenario_ref(bank, s.x_ref, B)
     geo = sp._masked_geometry(bank)
-    qp = sp._assemble_condensed_batch(p, bank, s.weights, cfg, X, w.U, x_ref, s.u_ref, *geo)[0]
+    qp, S_all, phi_all, _ = sp._assemble_condensed_batch(p, bank, s.weights, cfg, X, w.U,
+                                                          x_ref, s.u_ref, *geo)
     K, _ = build_K(qp, w.rho.to(torch.float32), cfg.admm.sigma)
+    # the SQP iteration's step (sqp_solve_batch), which the line search scales
+    sol = solve_mpc_qp_lanes(qp, cfg.admm, y_hull0=w.y_hull, y_term0=w.y_term, rho0=w.rho,
+                             kinv0=w.kinv, newton_iters=cfg.newton_iters)
+    dU = sol.x.reshape(B, cfg.horizon, -1)
+    dX = torch.einsum("btin,bn->bti", S_all, sol.x) + phi_all
     sqp = lambda c: sp.sqp_solve_batch(p, bank, s.weights, c, s.c0, s.x_ref, s.u_ref, w)
     return {
         "(a) full step": lambda: s.step(w),
@@ -235,6 +245,8 @@ def components(s, out) -> dict:
             newton_iters=cfg.newton_iters),
         "(g) exact_kinv": lambda: exact_kinv(K),
         "(g) newton_kinv": lambda: newton_kinv(K, w.kinv, cfg.newton_iters),
+        "(i) _merit_alpha": lambda: sp._merit_alpha(p, bank, s.weights, cfg, X, w.U, dX, dU,
+                                                    x_ref, s.u_ref, *geo),
     }
 
 

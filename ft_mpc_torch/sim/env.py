@@ -132,14 +132,19 @@ def _closed_loop(
     x_ref_full: torch.Tensor,
     u_ref_full: torch.Tensor,
     generator: torch.Generator | None,
+    on_step: Callable[[int, torch.Tensor, WarmStart], None] | None = None,
 ) -> RolloutHistory:
-    """The loop shared by every rollout: (B, T, ...) histories."""
+    """The loop shared by every rollout: (B, T, ...) histories.  `on_step`,
+    when given, is called as on_step(i, state, warm) with step i's inputs
+    before it, and with i = steps and the next ones after the last step."""
     Nt = mpc_cfg.horizon
     dtype = x_ref_full.dtype
     B = x_init.shape[0]
     state = x_init
     recs = []
     for i in range(sim_cfg.steps):
+        if on_step is not None:
+            on_step(i, state, warm)
         sc = scenario_at(i)
         x_ref = _window(x_ref_full, i, Nt + 1)
         u_ref = _window(u_ref_full, i, Nt + 1)
@@ -158,6 +163,8 @@ def _closed_loop(
             out.info.term_gap, out.alloc.was_clipped,
         ))
         state = x_new
+    if on_step is not None:
+        on_step(sim_cfg.steps, state, warm)
     return RolloutHistory(*(torch.stack(r, dim=1) for r in zip(*recs)))
 
 
@@ -254,13 +261,17 @@ def batched_rollout_lanes(
     x_ref_full: torch.Tensor,  # shared (T_ref, 9)
     u_ref_full: torch.Tensor,
     generator: torch.Generator | None = None,
+    on_step: Callable[[int, torch.Tensor, WarmStart], None] | None = None,
 ) -> RolloutHistory:
     """B simultaneous closed loops on the batched controller.
 
     Same semantics as `batched_rollout`, but each step is one
     `get_control_batch` for the whole bank (the condensing, ADMM and
     allocation kernels on the card, the Newton-refreshed inverse metric
-    carried in the warm start).  Histories (B, T, ...).
+    carried in the warm start).  Histories (B, T, ...).  `on_step(i, state,
+    warm)`, when given, sees each step's robot state and warm start before
+    the step runs, and the next ones once after the last (i = steps): a
+    caller's per-step timer, or a copy of the last step's inputs.
     """
     _check_noise(sim_cfg, generator)
     Nt = mpc_cfg.horizon
@@ -269,4 +280,4 @@ def batched_rollout_lanes(
     warm0 = init_warmstart_batch(params, scenarios, weights, mpc_cfg, c_init,
                                  x_ref_full[: Nt + 1], u_ref_full[: Nt + 1])
     return _closed_loop(params, lambda i: scenarios, get_control_batch, weights, mpc_cfg,
-                        sim_cfg, x_inits, warm0, x_ref_full, u_ref_full, generator)
+                        sim_cfg, x_inits, warm0, x_ref_full, u_ref_full, generator, on_step)

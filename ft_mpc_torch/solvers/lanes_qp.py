@@ -83,8 +83,10 @@ def newton_kinv(K: torch.Tensor, X0: torch.Tensor, iters: int) -> torch.Tensor:
     # One host sync per refresh (the JAX path's lax.cond): only one branch
     # is computed.  A device-side select without the sync is a place for a
     # later change.
-    if bool(((resid >= threshold) | ~torch.isfinite(resid)).any()):
+    nonfinite = ~torch.isfinite(resid)
+    if bool(((resid >= threshold) | nonfinite).any()):
         newton_kinv.rescues += 1
+        newton_kinv.rescues_nonfinite += int(bool(nonfinite.any()))
         return exact_kinv(K)
     X, Yl = s * X0, s * Y
     for i in range(iters):
@@ -96,6 +98,7 @@ def newton_kinv(K: torch.Tensor, X0: torch.Tensor, iters: int) -> torch.Tensor:
 
 
 newton_kinv.rescues = 0  # whole-batch exact refactors taken
+newton_kinv.rescues_nonfinite = 0  # of those, taken with a non-finite residual
 
 
 def build_K(qp: StructuredMPCQP, rho: torch.Tensor, sigma: float):

@@ -29,6 +29,7 @@ import hashlib
 import json
 from dataclasses import dataclass
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import scipy.linalg as la
@@ -447,6 +448,19 @@ class TerminalIngredients:
     emax: np.ndarray  # (3,)
     r_empc: float
     meta: dict
+    # the value-function grid this run sampled (None for an entry read from
+    # a file or a quadratic fallback); never saved
+    grid: ValueGrid | None = None
+
+
+class ValueGrid(NamedTuple):
+    """Stage C's grid as `compute_terminal_ingredients` solved it."""
+
+    empc: AxisEMPC  # the per-axis eMPC whose value function was sampled
+    horizon: int
+    points: np.ndarray  # (M, 2)
+    values: np.ndarray  # (M,)
+    r_prim: np.ndarray  # (M,), each point's QP residual; feasible below FEASIBLE_R_PRIM
 
 
 def axis_empc(hull: Polytope, M, f_virt6, omega_des, r, inertia, dt: float, Q, R,
@@ -512,8 +526,9 @@ def compute_terminal_ingredients(
         hull, M, f_virt6, omega_des, r, inertia, dt, Q, R, k_omega, max_acceleration,
         time_scaling,
     )
-    pts, vals, feas = sample_value_function(empc, empc_horizon, grid_step=grid_step,
+    pts, vals, r_prim = value_function_grid(empc, empc_horizon, grid_step=grid_step,
                                             device=device, dtype=dtype)
+    feas = r_prim < FEASIBLE_R_PRIM
     A2, b2, c2 = fit_quadratic_upper_bound(pts[feas], vals[feas])
 
     # omega Lyapunov cost
@@ -566,6 +581,7 @@ def compute_terminal_ingredients(
             "empc_horizon": empc_horizon,
             "n_grid": int(feas.sum()),
         },
+        grid=ValueGrid(empc, empc_horizon, pts, vals, r_prim),
     )
 
 

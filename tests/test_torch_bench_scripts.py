@@ -119,7 +119,7 @@ def test_profile_step_on_cpu(monkeypatch):
     rec = profile_step.main(B=8, reps=2, sweep=(16,), device="cpu")
     comps = rec["components"]
     assert {k[:4] for k in comps} == {"(a) ", "(b) ", "(b0)", "(c) ", "(d) ", "(e) ", "(f) ",
-                                      "(g) ", "(h) ", "clea"}
+                                      "(g) ", "(h) ", "(i) ", "clea"}
     assert "(h) full step B=16" in comps and rec["card"] is None
     assert rec["warmup_steps"] == 1 and isinstance(rec["unresolved"], list)
     assert len(rec["containment"]) == len(profile_step.CONTAINS)
@@ -177,6 +177,7 @@ def test_profile_step_in_turns():
     ({"(d) _linearize": (90.0, 1.0)}, ["(d) _linearize"]),
     ({"(b0) sqp_solve_batch without cleanup": (150.0, 2.0), profile_step.CLEANUP: (160.0, 2.0)},
      [profile_step.CLEANUP]),
+    ({"(i) _merit_alpha": (250.0, 2.0)}, ["(i) _merit_alpha"]),
 ])
 def test_profile_step_unresolved(times, bad):
     """A part that reads above what contains it by more than twice the
@@ -185,7 +186,7 @@ def test_profile_step_unresolved(times, bad):
           "(b0) sqp_solve_batch without cleanup": (200.0, 5.0),
           "(c) allocate_thrusters_lanes": (0.3, 0.01), "(d) _linearize": (55.0, 2.0),
           "(e) _assemble_condensed_batch": (77.0, 2.0), "(f) solve_mpc_qp_lanes": (3.9, 0.1),
-          profile_step.CLEANUP: (100.0, 5.0)}
+          profile_step.CLEANUP: (100.0, 5.0), "(i) _merit_alpha": (15.0, 1.0)}
     ms.update(times)
     pairs = profile_step.containment({k: {"host_ms": v, "host_ms_se": e}
                                       for k, (v, e) in ms.items()})

@@ -20,9 +20,11 @@ The same numpy inputs go through `ft_mpc_tpu` (x64, as its tests run) and
     differently sit on that threshold and are named here; fitted on the
     committed run's feasible points, the port's values give P9, p9 and c
     within rtol 1e-3 (atol 1e-3 max|P9|, as p9 and c are about 0).
-    `ft_mpc_torch/data/terminal_grid_masks.npz` holds those feasible points,
-    equal to a fresh float32 run of the JAX package (`write_grid_masks`,
-    also `python tests/test_torch_pipeline.py`, regenerates it).
+    `ft_mpc_torch/data/terminal_grid_masks.npz` holds the JAX package's
+    float32 runs of every certified committed entry of the census: the
+    feasible points and the r_prim of the points near the threshold
+    (`write_grid_masks`, also `python tests/test_torch_pipeline.py`,
+    regenerates it); a few of them are held against a fresh run here.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import pytest
 import torch
 
 from ft_mpc_torch.api import DEFAULT_TUNING, build_scenario_with_terminal
+from ft_mpc_torch.benchmarks import build_terminal_cache as census
 from ft_mpc_torch.controllers import orbit_search as torb
 from ft_mpc_torch.controllers.spiral_params import SpiralParameters as TSpiral
 from ft_mpc_torch.convert import flatten_namedtuple
@@ -55,6 +58,9 @@ TERMINAL_CACHE = REPO / "ft_mpc_tpu" / "config" / "terminal_cache"
 GRID_MASKS = REPO / "ft_mpc_torch" / "data" / "terminal_grid_masks.npz"
 PATTERNS = {"healthy": [], "3": [3], "8_9": [8, 9], "12_13": [12, 13], "12_15": [12, 15]}
 CACHED = ("healthy", "8_9")  # committed float32 entries reproduced below
+# stored JAX grids held against a fresh run: the certified patterns that
+# chip_smoke.py's census build (section 12b) compares, and one more searched orbit
+MASKS_CHECKED = ("healthy", "0", "8_9", "5_10")
 # grid points (x, v) whose feasibility the port's float32 run on this CPU
 # decides otherwise than the committed run: r_prim within THRESHOLD_BAND of
 # 1e-4 in both (here 7.8e-5..1.1e-4 against 8.9e-6..4.7e-4)
@@ -242,12 +248,24 @@ def _jax_empc(hull, ff, orbit, plant):
     return jpl.empc_ingredients(1.0, 1.0, r_in, dt, 5.0, r_empc / np.sqrt(3.0))
 
 
+def _pattern(name) -> list[int]:
+    return [] if name == "healthy" else [int(i) for i in name.split("_")]
+
+
 def _committed(name):
     from ft_mpc_torch.api import terminal_cache_path
 
     tp = TBodyParams.default(0.1, torch.float32, "cpu")
-    path = terminal_cache_path(tp, [TBroken(i, 1.0) for i in PATTERNS[name]], DEFAULT_TUNING)
+    path = terminal_cache_path(tp, [TBroken(i, 1.0) for i in _pattern(name)], DEFAULT_TUNING)
     return tpl.load_terminal_ingredients(path)
+
+
+def certified_census() -> list[str]:
+    """The names of the census patterns whose committed entry is certified."""
+    from ft_mpc_torch.geometry.scenario import default_fault_pool
+
+    names = [census.pattern_name(f) for f in default_fault_pool()]
+    return [n for n in names if "fallback" not in _committed(n).meta]
 
 
 def _fit_blocks(fit, pts, V, mask, P_om):
@@ -255,45 +273,90 @@ def _fit_blocks(fit, pts, V, mask, P_om):
     return tpl.quadratic_bound_blocks(*fit(pts[mask], V[mask]), P_om)
 
 
-def jax_grid_masks() -> dict[str, np.ndarray]:
-    """The feasible points of the committed float32 entries, by the JAX
-    package in float32 (64-bit mode off, as the cache was built), with each
-    entry's fit reproduced from them."""
+def _jax_grid(empc):
+    """`jpl.sample_value_function(empc, 3)`: points, values, the feasible
+    mask, and each point's r_prim, the output of its batched solve caught as
+    the vmapped solve returns it (the function keeps only the mask)."""
+    caught = {}
+    vmap = jax.vmap
+
+    def catching(fn, *args, **kw):
+        solve = vmap(fn, *args, **kw)
+
+        def run(*a):
+            caught["sol"] = out = solve(*a)
+            return out
+        return run
+
+    jax.vmap = catching
+    try:
+        pts, V, feas = jpl.sample_value_function(empc, 3)
+    finally:
+        jax.vmap = vmap
+    r_prim = np.asarray(caught["sol"].r_prim)
+    np.testing.assert_array_equal(feas, r_prim < tpl.FEASIBLE_R_PRIM)
+    return pts, V, feas, r_prim
+
+
+def jax_grid_masks(names=CACHED) -> dict[str, tuple[np.ndarray, np.ndarray]]:
+    """{name: (feasible, r_prim)} of the committed float32 entries of
+    `names`, by the JAX package in float32 (64-bit mode off, as the cache
+    was built), with each entry's fit reproduced from them."""
     x64 = jax.config.jax_enable_x64
     jax.config.update("jax_enable_x64", False)
     try:
         masks = {}
-        for name in CACHED:
-            hull, ff = pattern_hull(PATTERNS[name])
+        for name in names:
+            hull, ff = pattern_hull(_pattern(name))
             ref = _committed(name)
             empc = _jax_empc(JPolytope(hull.A, hull.b), ff, ref.meta["orbit"], plant32())
-            pts, V, feas = jpl.sample_value_function(empc, 3)
+            pts, V, feas, r_prim = _jax_grid(empc)
             P, p, c = _fit_blocks(jpl.fit_quadratic_upper_bound, pts, V, feas, ref.P9[6:, 6:])
-            assert int(feas.sum()) == ref.meta["n_grid"]
-            np.testing.assert_allclose(P, ref.P9, rtol=1e-12, atol=0)
-            masks[name] = feas
+            assert int(feas.sum()) == ref.meta["n_grid"], name
+            np.testing.assert_allclose(P, ref.P9, rtol=1e-12, atol=0, err_msg=name)
+            masks[name] = (feas, r_prim.astype(np.float32))
         return masks
     finally:
         jax.config.update("jax_enable_x64", x64)
 
 
-def write_grid_masks(path=GRID_MASKS) -> None:
-    masks = jax_grid_masks()
-    np.savez_compressed(path, **{k: np.packbits(v) for k, v in masks.items()},
-                        n_points=np.int64(len(masks[CACHED[0]])))
+def band(r_prim: np.ndarray) -> np.ndarray:
+    """The points whose r_prim lies within THRESHOLD_BAND of the threshold."""
+    with np.errstate(divide="ignore"):
+        return np.flatnonzero(np.abs(np.log(r_prim / tpl.FEASIBLE_R_PRIM))
+                              <= np.log(census.THRESHOLD_BAND))
+
+
+def write_grid_masks(path=GRID_MASKS, names=None) -> None:
+    """The JAX runs of `names` (default every certified census pattern) in
+    `census.load_grid_masks`'s format."""
+    masks = jax_grid_masks(certified_census() if names is None else names)
+    bands = [band(r_prim) for _, r_prim in masks.values()]
+    np.savez_compressed(
+        path, names=np.array(list(masks)),
+        n_points=np.int64(len(next(iter(masks.values()))[0])),
+        feasible=np.stack([np.packbits(feas) for feas, _ in masks.values()]),
+        band_counts=np.array([len(i) for i in bands], np.int64),
+        band_idx=np.concatenate(bands).astype(np.uint16),
+        band_r_prim=np.concatenate([r[i] for (_, r), i in zip(masks.values(), bands)]))
 
 
 def load_grid_masks() -> dict[str, np.ndarray]:
-    with np.load(GRID_MASKS) as z:
-        n = int(z["n_points"])
-        return {k: np.unpackbits(z[k])[:n].astype(bool) for k in CACHED}
+    stored = census.load_grid_masks()
+    return {k: stored[k].feasible for k in CACHED}
 
 
 def test_grid_masks_match_jax():
-    fresh = jax_grid_masks()
-    stored = load_grid_masks()
-    for name in CACHED:
-        np.testing.assert_array_equal(stored[name], fresh[name], err_msg=name)
+    stored = census.load_grid_masks()
+    assert sorted(stored) == sorted(certified_census())
+    fresh = jax_grid_masks(MASKS_CHECKED)
+    for name in MASKS_CHECKED:
+        feas, r_prim = fresh[name]
+        np.testing.assert_array_equal(stored[name].feasible, feas, err_msg=name)
+        idx = band(r_prim)
+        assert sorted(stored[name].band) == idx.tolist(), name
+        np.testing.assert_allclose([stored[name].band[i] for i in idx], r_prim[idx],
+                                   rtol=1e-6, err_msg=name)
 
 
 @pytest.mark.parametrize("name", CACHED)
