@@ -10,7 +10,7 @@
    size (`bench.py`: B=2048 scenarios tiled from the 32-pattern bank,
    horizon 15, 2 SQP iterations, 60 ADMM iterations, 3 Newton steps,
    worst-256 cleanup at 600x3), `init_warmstart_batch` and then
-   WARMUP + STEPS = 10 + 120 warm-chained `get_control_batch` steps, as
+   WARMUP + STEPS = 10 + 30 warm-chained `get_control_batch` steps, as
    bench.py chains them.  The kernels' launch counters are zeroed just
    before and read just after.
 3. Holds each kernel against its plain PyTorch version on the card, at the
@@ -25,7 +25,7 @@
 5. Drives the stagewise (long-horizon) path at the largest point of
    `benchmarks/envelope.py`: B=512 scenarios, horizon 240, 2 SQP iterations,
    60 Riccati-in-ADMM iterations, worst-64 cleanup at 300x2, SW_WARMUP +
-   SW_STEPS = 3 + 12 chained steps, with the launch counters zeroed just
+   SW_STEPS = 3 + 6 chained steps, with the launch counters zeroed just
    before and read just after: one backward and one forward sweep a
    re-solve (720 a step) in one launch, one preparation a phase (4 a
    step), printed a step and a re-solve and by design; then holds the
@@ -40,7 +40,7 @@
 6. Drives the closed loop (`ft_mpc_torch/sim/env.py`), each run with the
    launch counters zeroed just before and read just after:
    - `batched_rollout_lanes` at the condensed path's configuration, B=2048,
-     LOOP_STEPS = 50 steps, seeded 'reference' noise: per-step times, the
+     LOOP_STEPS = 20 steps, seeded 'reference' noise: per-step times, the
      kernels' launches per step (3 / 5 / 1), the plant and fault gates, and
      the allocation kernel held on the last step's wrenches;
    - 3 closed-loop steps at B=32 (one row per pattern, no noise), each step
@@ -50,9 +50,9 @@
      `examples/sim.py` runs it: the (10, 11) double fault, 300 steps of
      hover, 'reference' noise; its final orbit-centre error gated below
      0.1 m),
-     `batched_rollout` at B=128 for 20 steps, `rollout_with_fault_schedule`
-     (healthy, then (10, 11) from step 15 of 40), and the stagewise backend
-     (mode 'scan', horizon 60) for 5 steps.
+     `batched_rollout` at B=128 for 10 steps, `rollout_with_fault_schedule`
+     (healthy, then (10, 11) from step 15 of 25), and the stagewise backend
+     (mode 'scan', horizon 60) for 3 steps.
 7. Drives banks built by the port itself (`ft_mpc_torch.api`,
    `geometry.scenario`), each run with the launch counters zeroed just
    before and read just after:
@@ -79,10 +79,10 @@
      run's (those decided otherwise on the 1e-4 threshold), P9, p9 and c
      within 1e-3; host seconds and the grid's batched ADMM time;
    - `SpiralingMPC` and `SimulationEnvironment` at the demo's tuning from
-     the demo's state, 20 steps, `set_fault` with a single fault the
-     committed cache lacks (timed), 20 more steps; the broken thruster at
+     the demo's state, 10 steps, `set_fault` with a single fault the
+     committed cache lacks (timed), 10 more steps; the broken thruster at
      most 1e-6 N; `to_history` and `export_csv` (67 columns);
-   - the demo's `main` with --batch 16, its duration cut to 3 s, cache
+   - the demo's `main` with --batch 16, its duration cut to 1.5 s, cache
      misses through the pipeline;
    - the whole lanes step at B=1 (the accuracy harness's lanes leg: cleanup
      K=1 over 4 rounds) for 3 chained steps, launches counted, each step
@@ -102,7 +102,7 @@
    - 9b: the same on two shards of the one card (`["cuda:0", "cuda:0"]`):
      each shard equal to `get_control_batch` on its own rows within 1e-6 N,
      2 x (3 / 5 / 1) launches a step; the rows whose cleanup differs from
-     the unsharded step's (printed); `sharded_rollout_lanes` for 10 steps,
+     the unsharded step's (printed); `sharded_rollout_lanes` for 5 steps,
      one seeded generator per shard, with section 6's plant and fault gates;
    - 9c: `python -m ft_mpc_torch.parallel.launch` in subprocesses: a NCCL
      world of one with two shards, two processes sharing the card over gloo
@@ -114,7 +114,7 @@
      steps: thrusters 8-15 at most 1e-6 N, max_term_gap <= 0.4, launches
      3 / 5 / 1, kernels 1-3 held and timed on its own inputs, one step card
      vs CPU on 32 rows; then `tests/test_planar.py`'s hover (per-scenario,
-     30 steps), its drift printed and its absent thrusters gated at 1e-6 N.
+     15 steps), its drift printed and its absent thrusters gated at 1e-6 N.
 10. Drives the condensed configuration of section 2 with the state box and
    rate rows of the reference's reactive.yaml (`tests/test_config_bounds.py`:
    0.5 m/s on the three velocities, du_max [2, 2, 2, 1, 1, 1]; T=596 dense
@@ -138,7 +138,7 @@
    own calls), each record printed on a line of its own and gated; each
    script zeroes the launch counters just before its windows and reads them
    just after:
-   - `bench.main` at B=2048 with 1 warm-up and BENCH_WINDOWS = 2 timed
+   - `bench.main` at B=2048 with 1 warm-up and BENCH_WINDOWS = 1 timed
      windows of 10 chained steps: no failed gate, the record's fields, the
      card's name and power limit, finite outputs, max_term_gap <= 0.4, the
      gap rows within the pinned set, launches 3 / 5 / 1 a step;
@@ -170,10 +170,31 @@
      the committed entry (orbit, emax, r_empc, terminal set; the grid's
      points decided otherwise on the threshold, the fit on the JAX run's
      points within 1e-3), counts 2 / 1 / 1, the committed cache untouched;
-   - 12c: `scaling.main`: the bench at B=512 and 2048 with 2 timed windows
+   - 12c: `scaling.main`: the bench at B=512 and 2048 with 1 timed window
      (no failed gate, 3 / 5 / 1 launches a step) and the sharded step on 1
      and 2 shards of the card, 2 chained steps each (2 / 2 / 1 launches a
      step a shard).
+
+13. Drives the JAX repo's last measuring scripts, ported to
+   `ft_mpc_torch/benchmarks/`, as smoke runs (their full measurements are
+   their own calls), and `parallel.dryrun.entry`; each record printed and
+   gated, every output of every step finite (each script raises otherwise):
+   - 13a: `pareto.main` on two points, (2, 60, 1, 3, 0, 0) and the deployed
+     one, B=2048, 2 rounds in turns after each point's untimed window:
+     launches 2 / 2 / 1 and 3 / 5 / 1 a step, the record's card;
+   - 13b: `diag_cleanup.run` at cleanup 300x1 on K=512 rows, B=2048, 3
+     chained steps: launches 3 / 3 / 1 a step; the ADMM kernel held against
+     its plain version on the run's worst 512 rows at 300 iterations and
+     timed beside its bound (a row of the kernels line);
+   - 13c: `diag_residual.run`'s pair at 160x2 on B=128, 3 steps each: the
+     batched run 2 / 4 / 1 launches a step, the per-scenario run none; the
+     ADMM kernel held and timed on the batched run's QP at B=128, 160
+     iterations (a row of the kernels line); then the stagewise leg (B=512,
+     Nt=240) at 2 steps, 720 re-solve launches and 4 preparations a step;
+   - 13d: `diag_stub.main` at 3 steps with one rho and one budget of the
+     probe: the worst row, its h_term, a finite probe;
+   - 13e: `ablate.main` on two variants, 2 rounds: no kernel launch;
+   - 13f: `entry()`'s step once: shapes (16,), (6,), (), finite, no launch.
 
 Prints the card's name and power limit, one JSON line with every kernel's
 numbers, and as its last line {"ok": true, "device": {...}}.  Exits with a
@@ -254,14 +275,14 @@ HULL_MARGIN = 1e-7  # the hull test: hull_A w_total <= hull_b + 1e-7
 FALLBACK_EQ_ERR = 1e-2  # the fallback replaces u only above this equality error
 U32 = 2.0 ** -24  # float32 unit roundoff
 WARMUP = 10  # bench.py: warm-up steps, then timed steps, all chained
-STEPS = 120
+STEPS = 30  # cut from 120 so that the script fits its time limit
 
 # The stagewise path: the largest point of benchmarks/envelope.py, with the
 # configuration of benchmarks/long_horizon.py.
 SW_HORIZON = 240
 SW_BATCH = 512
 SW_WARMUP = 3
-SW_STEPS = 12
+SW_STEPS = 6  # depth cut so that the script fits its time limit (12 before)
 SW_SMALL = (32, 60)  # (B, horizon) of the card-vs-CPU stagewise steps
 SW_SMALL_STEPS = 2  # chained, so the carried warm start, duals and rho are held
 # max_r_prim after the chained steps: the solver reaches 4.1e-3 on this bank
@@ -271,7 +292,7 @@ SW_SMALL_STEPS = 2  # chained, so the carried warm start, duals and rho are held
 SW_R_PRIM_GATE = 1e-2
 RICCATI_SMALL = 8  # the sweeps' batch in the long-horizon envelope's B=64 cleanup
 # The closed loop (ft_mpc_torch/sim/env.py)
-LOOP_STEPS = 50  # batched_rollout_lanes at B=BATCH
+LOOP_STEPS = 20  # batched_rollout_lanes at B=BATCH; cut from 50 to fit the time limit
 LOOP_SMALL = (32, 3)  # (B, steps) of the same-state card-vs-CPU closed loop
 # launches per step on the condensed path: condensing once per SQP iteration
 # and once in the cleanup; ADMM once per SQP iteration and once per cleanup
@@ -279,9 +300,9 @@ LOOP_SMALL = (32, 3)  # (B, steps) of the same-state card-vs-CPU closed loop
 LOOP_LAUNCHES = {"condense_lanes": 3, "admm_lanes": 5, "allocate_thrusters_lanes": 1}
 DEMO_STEPS = 300  # examples/sim.py: 30 s of hover at dt 0.1
 DEMO_ERR_GATE = 0.1  # m, final orbit-centre position error of the demo
-SCEN_BATCH = (128, 20)  # (B, steps) of batched_rollout (examples/sim.py --batch 128)
-SCHEDULE = (15, 40)  # (switch step, steps), tests/test_mpc.py:188-212
-SW_ROLLOUT = (60, 5)  # (horizon, steps) of the per-scenario stagewise rollout
+SCEN_BATCH = (128, 10)  # (B, steps) of batched_rollout (examples/sim.py --batch 128)
+SCHEDULE = (15, 25)  # (switch step, steps), tests/test_mpc.py:188-212 (40 steps there)
+SW_ROLLOUT = (60, 3)  # (horizon, steps) of the per-scenario stagewise rollout
 # section 7: banks built by the port
 PORT_WARMUP = 3
 PORT_STEPS = 10
@@ -294,23 +315,23 @@ C2_STEPS = 2
 PIPELINE_PATTERNS = (("healthy", ()), ("8_9", (8, 9)), ("12_13", (12, 13)))
 TOL_PIPE = 1e-3  # P9, p9, c: rtol, atol TOL_PIPE max|P9| (tests/test_torch_pipeline.py)
 THRESHOLD_BAND = 20.0  # a grid point decided otherwise has r_prim within 20x of 1e-4
-API_STEPS = (20, 20)  # SimulationEnvironment steps before and after the runtime fault
+API_STEPS = (10, 10)  # SimulationEnvironment steps before and after the runtime fault
 DEMO_BATCH = 16
-DEMO_DURATION = 3.0  # s of the --batch demo (the configuration's 30 s, cut to fit)
-ACC_STEPS = 3  # the accuracy leg, cut from the harness's 120 to fit (about 30 s a step
+DEMO_DURATION = 1.5  # s of the --batch demo (the configuration's 30 s, cut to fit)
+ACC_STEPS = 1  # the accuracy leg, cut from the harness's 120 to fit (about 30 s a step
 #   on an H100: the float64 golden's 25 SQP iterations of 900 ADMM iterations); it
 #   reaches none of the harness's gates (the first from step 20), so it holds
 #   finiteness and the lanes leg's kernel launches; the 120 steps run separately
 LANES_B1_STEPS = 3
 # section 9: scenario sharding and the planar model family
 SHARD_TOL = 1e-6  # N: a shard against get_control_batch on its own rows (same card)
-SHARD_ROLLOUT = 10  # steps of sharded_rollout_lanes
-LAUNCH_REPS = 10  # --reps of each launch run
+SHARD_ROLLOUT = 5  # steps of sharded_rollout_lanes
+LAUNCH_REPS = 4  # --reps of each launch run (10 before; cut to fit the time limit)
 LAUNCH_TIMEOUT = 300  # s, each launch subprocess
 TOL_PROCS = 1e-5  # 2 processes against 1: tests/test_distributed.py:164-171
 PLANAR_PATTERNS = ((), (6,), (2,))
 PLANAR_SMALL = 32  # rows of the planar card-vs-CPU step
-PLANAR_LOOP = 30  # steps of the planar hover (per-scenario path)
+PLANAR_LOOP = 15  # steps of the planar hover (per-scenario path)
 # section 10: the condensed step with the reference's state box and rate rows
 BOX_V = 0.5  # m/s on the three velocities: the reactive.yaml of tests/test_config_bounds.py
 BOX_DU_MAX = (2.0, 2.0, 2.0, 1.0, 1.0, 1.0)
@@ -325,7 +346,7 @@ BOX_STATES_NOTE = (
     "cleanup), and the line search picks one of three step lengths; such rows are "
     "counted, as the allocation's branches are, and the others held to TOL_STEP_U")
 # section 11: the bench entry and the measuring scripts (ft_mpc_torch/benchmarks)
-BENCH_WINDOWS = 2  # 1 warm-up and 2 timed windows of 10 chained steps (12 in the bench)
+BENCH_WINDOWS = 1  # 1 warm-up and 1 timed window of 10 chained steps (12 in the bench)
 ENVELOPE_POINTS = ((240, "stagewise-lanes", 64), (15, "condensed", 512))
 ENVELOPE_REPS = 2
 SCAN_POINT = (15, 64)  # (Nt, B) of long_horizon.run's 'stagewise' (mode 'scan') backend
@@ -342,8 +363,18 @@ CENSUS_BUILD = ((), (0,), (8, 9), (12, 13))  # 12b: default orbit twice, searche
 CENSUS_BUILD_COUNTS = (2, 1, 1)  # certified at the default orbit, at a searched one, not
 UNCERTIFIED = [[12, 13], [12, 15], [13, 14], [14, 15]]  # the committed entries' fallbacks
 SWEEP_BATCHES = (512, 2048)  # 12c: the batch sweep's points
-SWEEP_WINDOWS = 2  # timed windows of the bench at each point (12 in the bench)
+SWEEP_WINDOWS = 1  # timed windows of the bench at each point (12 in the bench)
 SWEEP_REPS = 2  # chained steps of each mesh of the device sweep (5 in the script)
+# section 13: pareto, the three diagnostics, the ablation and the single-scenario entry
+PARETO_POINTS = ((2, 60, 1, 3, 0, 0), (2, 60, 1, 3, 600, 256))
+PARETO_ROUNDS = 2
+CLEANUP_RUN = (60, 300, 512, 1)  # diag_cleanup's (admm iters, cleanup iters, K, phases)
+DIAG_STEPS = 3
+RESIDUAL_PAIR = (("lanes", 2, 160, 2, 3, 50.0, 1.5), ("condensed", 2, 160, 2, 3, 50.0, 1.5))
+RESIDUAL_BATCH = 128
+STAGEWISE_STEPS = 2
+ABLATE_VARIANTS = ("full (3 sqp, admm 25x2)", "sqp=1")
+ABLATE_REPS = 2
 CONDENSED_KERNELS = ("condense_lanes", "admm_lanes", "allocate_thrusters_lanes")
 STAGEWISE_KERNELS = ("riccati_bwd_lanes", "riccati_fwd_lanes", "riccati_prepare_lanes",
                      "allocate_thrusters_lanes")
@@ -3032,6 +3063,152 @@ def drive_census_scripts(device, card: str, check) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# section 13: pareto, the diagnostics, the ablation and the single-scenario entry
+# ---------------------------------------------------------------------------
+
+
+def kernel_row_on(device, s, cfg, warm, rows, iters: int, label: str,
+                  launches: int) -> dict:
+    """The ADMM kernel held against its plain version and timed on a
+    script's inputs `s` (`bench.inputs`) at its last step: the QP of
+    `warm` on `rows` (all when None) at `iters` iterations."""
+    ctx = Ctx(device, torch.float32, len(s.x0), x0=s.x0.cpu().numpy(), bank=s.bank)
+    ctx.cfg = cfg
+    r = check_admm(ctx, admm_inputs(ctx, warm, ctx.weights, rows=rows), iters, label, reps=3)
+    r["launches"] = launches
+    return r
+
+
+def pareto_phase(device, card: str, check) -> None:
+    """13a: two points of the frontier in turns."""
+    from ft_mpc_torch.benchmarks import pareto
+
+    rec = pareto.main(B=BATCH, configs=PARETO_POINTS, rounds=PARETO_ROUNDS, device=device)
+    log("section 13, pareto: " + json.dumps(rec))
+    for line in rec["frontier_md"]:
+        log(f"13a: {line}")
+    check(rec["card"] == torch.cuda.get_device_name(device) and rec["nvidia_smi"] == card,
+          f"pareto record names {rec['card']!r} / {rec['nvidia_smi']!r}")
+    want = ({"condense_lanes": 2, "admm_lanes": 2, "allocate_thrusters_lanes": 1},
+            LOOP_LAUNCHES)
+    for r, w in zip(rec["points"], want):
+        log(f"13a: {r['label']}: p50 {r['latency_p50_ms']:.3f} ms, p99 "
+            f"{r['latency_p99_ms']:.3f} ms, {r['solves_per_s']:.1f} solves/s, max_r_prim "
+            f"{r['max_r_prim']:.3e}, {r['newton_rescues']} rescues, "
+            f"{r['vs_deployed_same_round']:.3f} of the deployed point's window; card: {card}")
+        check(len(r["latency_samples_ms"]) == PARETO_ROUNDS and r["counted_steps"]
+              == (1 + PARETO_ROUNDS) * pareto.STEPS_PER_WINDOW,
+              f"pareto {r['label']}: {len(r['latency_samples_ms'])} samples, "
+              f"{r['counted_steps']} steps")
+        off = launches_off(r["launches_per_step"], w)
+        check(not off, f"pareto {r['label']}: launches a step {off}, not {w}")
+    log(f"13a: fastest at max_r_prim <= 1e-3: {rec['fastest_at_r_prim_1e-3']}")
+
+
+def diag_phase(device, card: str, check) -> list:
+    """13b-13d: the cleanup run at K=512, the residual pair and the
+    stagewise leg, the stub; returns the two ADMM kernel rows."""
+    from ft_mpc_torch.benchmarks import bench, diag_cleanup, diag_residual, diag_stub
+
+    s = bench.inputs(BATCH, device)
+    rec, out = diag_cleanup.run(s, CLEANUP_RUN, DIAG_STEPS)
+    log("section 13, diag_cleanup: " + json.dumps(rec))
+    log(f"13b: {diag_cleanup.line(rec)}; launches a step {rec['launches_per_step']}; "
+        f"card: {card}")
+    off = launches_off(rec["launches_per_step"], {"condense_lanes": 3, "admm_lanes": 3,
+                                                  "allocate_thrusters_lanes": 1})
+    check(not off, f"diag_cleanup: launches a step {off}")
+    k = CLEANUP_RUN[2]
+    rows = [kernel_row_on(device, s, diag_cleanup.run_config(CLEANUP_RUN), out.warm,
+                          torch.topk(out.info.r_prim, k).indices, CLEANUP_RUN[1],
+                          f"diag_cleanup's cleanup K={k}", rec["launches"]["admm_lanes"])]
+    del s, out
+
+    s = bench.inputs(RESIDUAL_BATCH, device)
+    for spec in RESIDUAL_PAIR:
+        rec, out = diag_residual.run(s, spec, DIAG_STEPS)
+        log("section 13, diag_residual: " + json.dumps(rec))
+        log(f"13c: {diag_residual.lines(rec)}; launches a step {rec['launches_per_step']}; "
+            f"card: {card}")
+        want = ({"condense_lanes": 2, "admm_lanes": 4, "allocate_thrusters_lanes": 1}
+                if spec[0] == "lanes" else {})
+        off = launches_off(rec["launches_per_step"], want)
+        check(not off, f"diag_residual {rec['label']}: launches a step {off}")
+        if spec[0] == "lanes":
+            rows.append(kernel_row_on(device, s, diag_residual.run_config(spec), out.warm,
+                                      None, spec[2], f"diag_residual B={RESIDUAL_BATCH}"
+                                      f" {spec[2]}x{spec[3]}", rec["launches"]["admm_lanes"]))
+    sw = diag_residual.stagewise_inputs(diag_residual.STAGEWISE["batch"], device)
+    rec, _ = diag_residual.run_stagewise(sw, STAGEWISE_STEPS)
+    log("section 13, diag_residual stagewise: " + json.dumps(rec))
+    log(f"13c: {diag_residual.lines(rec)}; card: {card}")
+    resolves = 2 * 60 + 300 * 2  # sqp_iters * iters + cleanup * 2 phases
+    per = rec["launches_per_step"]
+    by = sum(rec["riccati_launches_by_design"].values()) / rec["steps"]
+    off = launches_off(per, {"riccati_bwd_lanes": resolves, "riccati_fwd_lanes": resolves,
+                             "riccati_prepare_lanes": 4, "allocate_thrusters_lanes": 1})
+    check(not off and by == resolves, f"diag_residual stagewise: {by} re-solve launches a "
+          f"step, launches a step {off}")
+    del sw
+
+    rec = diag_stub.main(B=BATCH, steps=DIAG_STEPS, rhos=(50.0,), budgets=((300, 1),),
+                         device=device)
+    log("section 13, diag_stub: " + json.dumps(rec))
+    w = rec["worst_row"]
+    log(f"13d: worst row {w['index']} (geometry {w['geometry']}, pattern {w['pattern']}): "
+        f"r_prim {w['r_prim']:.3e}, r_dual {w['r_dual']:.3e}, rho {w['rho']:.3g}; h_term "
+        f"min {rec['h_term']['min']:.3e}, {rec['h_term']['n_negative']} negative of "
+        f"{rec['h_term']['active_rows']}; probe {rec['probes']}; card: {card}")
+    check(len(rec["probes"]) == 1 and rec["probes"][0]["finite"]
+          and np.isfinite(rec["probes"][0]["r_prim"]) and w["geometry"] == w["index"] % 32,
+          f"diag_stub: probe {rec['probes']}, worst row {w}")
+    return rows
+
+
+def ablate_phase(device, card: str, check) -> None:
+    """13e-13f: two ablation variants in turns and the single-scenario entry."""
+    from ft_mpc_torch.benchmarks import ablate
+    from ft_mpc_torch.parallel.dryrun import entry
+
+    rec = ablate.main(B=BATCH, reps=ABLATE_REPS, names=ABLATE_VARIANTS, device=device)
+    log("section 13, ablate: " + json.dumps(rec))
+    for r in rec["rows"]:
+        log(f"13e: {r['label']} (admm {r['config']['admm_iters']}x"
+            f"{r['config']['admm_phases']}, sqp {r['config']['sqp_iters']}): "
+            f"{r['ms_per_batch_step']:.3f} ms a batch step, {r['solves_per_s']:.1f} "
+            f"solves/s; card: {card}")
+    check([r["label"] for r in rec["rows"]] == list(ABLATE_VARIANTS)
+          and not any(rec["launches"].values()),
+          f"ablate: rows {[r['label'] for r in rec['rows']]}, launches {rec['launches']}")
+
+    zero_counters()
+    fn, args = entry(device)
+    t0 = time.perf_counter()
+    out = fn(*args)
+    sync(device)
+    ms = 1e3 * (time.perf_counter() - t0)
+    launched = read_counters()
+    log(f"13f: entry(): {[list(o.shape) for o in out]} in {ms:.3f} ms, cost "
+        f"{float(out[2]):.6f}; card: {card}")
+    check([tuple(o.shape) for o in out] == [(16,), (6,), ()]
+          and all(bool(torch.isfinite(o).all()) for o in out) and not any(launched.values()),
+          f"entry(): shapes {[tuple(o.shape) for o in out]}, launches {launched}")
+
+
+def drive_last_scripts(device, card: str, check) -> list:
+    """Section 13; returns its two ADMM kernel rows."""
+    pareto_phase(device, card, check)
+    torch.cuda.empty_cache()
+    rows = diag_phase(device, card, check)
+    for r in rows:
+        log("kernel: " + json.dumps(with_share(r)))
+        check(kernel_agrees(r), f"{r['name']} ({r['shape']}) disagrees with its plain version")
+    torch.cuda.empty_cache()
+    ablate_phase(device, card, check)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=Path, metavar="FILE",
@@ -3150,6 +3327,7 @@ def main(argv=None) -> int:
         (10, lambda: rows.append(drive_boxed(device, card, check))),
         (11, lambda: drive_bench_scripts(device, card, check)),
         (12, lambda: rows.extend(drive_census_scripts(device, card, check))),
+        (13, lambda: rows.extend(drive_last_scripts(device, card, check))),
     )
     for n, drive in sections:
         torch.cuda.empty_cache()

@@ -1,6 +1,7 @@
 """What the port's measuring scripts share: the card's identity, the window
-timer, the kernels' launch counters, and the bench's inputs (the 32-pattern
-census bank, the hover references, the seed-0 states of `bench.py` and of
+timer, the chained steps with their finiteness watch, the kernels' launch
+counters, and the bench's inputs (the 32-pattern census bank, the hover
+references, the seed-0 states of `bench.py` and of
 `benchmarks/long_horizon.py`).
 
 Every record a script writes names the device it ran on; on a card also the
@@ -78,6 +79,72 @@ def chained_windows(step, warm, windows: int, steps_per_window: int, device,
         sync(device)
         samples.append(1e3 * (clock() - t0) / steps_per_window)
     return np.asarray(samples, dtype=np.float64), out
+
+
+class FiniteWatch:
+    """Whether every tensor of every output it has seen is finite,
+    accumulated on the device, so that watching a step adds no host sync;
+    `require` reads it once and raises RuntimeError otherwise."""
+
+    def __init__(self):
+        self.ok, self.steps = None, 0
+
+    def see(self, out):
+        from torch.utils._pytree import tree_leaves
+
+        ok = torch.stack([torch.isfinite(t).all() for t in tree_leaves(out)
+                          if isinstance(t, torch.Tensor)]).all()
+        self.ok = ok if self.ok is None else self.ok & ok
+        self.steps += 1
+        return out
+
+    def require(self, what: str) -> None:
+        if self.ok is not None and not bool(self.ok):
+            raise RuntimeError(f"{what}: a non-finite output in {self.steps} steps")
+
+
+def chained_steps(step, warm, steps: int, watch: FiniteWatch | None = None):
+    """`steps` calls of `step(warm)`, each taking the previous output's
+    warm start (the JAX scripts' `fori_loop`); the last output."""
+    out = None
+    for _ in range(steps):
+        out = step(warm)
+        if watch is not None:
+            watch.see(out)
+        warm = out.warm
+    return out
+
+
+def drive_chain(step, warm, steps: int, device, what: str) -> tuple[dict, object]:
+    """`chained_steps` with the launch counters zeroed before and read after
+    and every output watched: (the ms a step by the host clock to a device
+    synchronize, the launches and rescues, the last output); raises
+    RuntimeError naming `what` on a non-finite output."""
+    watch = FiniteWatch()
+    zero_counters()
+    sync(device)
+    t0 = time.perf_counter()
+    out = chained_steps(step, warm, steps, watch)
+    sync(device)
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    counted = read_launches(steps)
+    watch.require(what)
+    return {"steps": steps, "ms_per_step": ms, **counted}, out
+
+
+def config_record(cfg) -> dict:
+    """The fields of an MPCConfig that the measuring scripts vary."""
+    return {"sqp_iters": cfg.sqp_iters, "admm_iters": cfg.admm.iters,
+            "admm_phases": cfg.admm.phases, "rho": cfg.admm.rho,
+            "adapt_clip": cfg.admm.adapt_clip, "newton_iters": cfg.newton_iters,
+            "cleanup_iters": cfg.cleanup_iters, "cleanup_k": cfg.cleanup_k,
+            "cleanup_phases": cfg.cleanup_phases, "ls_alphas": list(cfg.ls_alphas),
+            "qp_backend": cfg.qp_backend}
+
+
+def pattern_name(pattern) -> list[int]:
+    """A fault pattern as the indices of its broken thrusters."""
+    return [f.index for f in pattern]
 
 
 def counters() -> dict:

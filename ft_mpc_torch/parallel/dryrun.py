@@ -13,7 +13,15 @@ float32:
     unsharded at atol 2e-3.
 A failed leg raises AssertionError.
 
+`entry(device)`, counterpart of `__graft_entry__.py:entry`, returns the
+single-scenario control step and its example arguments: `fn(x0, warm)`
+gives (u_phys, wrench, cost) of `get_control` on the (10, 11) double fault
+at horizon 8 (2 SQP iterations, ADMM 10 x 2 at rho 1), `example_args` is
+(x0, `init_warmstart`) on the device.  It runs eagerly, as the port's
+other entry points do.
+
     python -m ft_mpc_torch.parallel.dryrun [N] [--device cuda|cpu]
+    python -m ft_mpc_torch.parallel.dryrun --entry [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -24,7 +32,8 @@ import numpy as np
 import torch
 
 
-def _setup(device, horizon=8, sqp_iters=2, admm_iters=10, admm_phases=2):
+def _setup(device, horizon=8, sqp_iters=2, admm_iters=10, admm_phases=2,
+           dtype=torch.float32):
     from ft_mpc_torch.api import DEFAULT_TUNING, build_scenario_with_terminal
     from ft_mpc_torch.controllers.spiraling import MPCConfig, MPCWeights
     from ft_mpc_torch.ops.dynamics import BodyParams
@@ -36,14 +45,15 @@ def _setup(device, horizon=8, sqp_iters=2, admm_iters=10, admm_phases=2):
     )
 
     dt = 0.1
-    f32 = torch.float32
-    params = BodyParams.default(dt, dtype=f32, device=device)
+    # the float32 plant keys the committed terminal cache, whatever dtype runs
+    plant = BodyParams.default(dt, dtype=torch.float32, device=device)
     scenario = build_scenario_with_terminal(
-        params, [BrokenThruster(10, 1.0), BrokenThruster(11, 1.0)], DEFAULT_TUNING,
-        device=device, dtype=f32,
+        plant, [BrokenThruster(10, 1.0), BrokenThruster(11, 1.0)], DEFAULT_TUNING,
+        device=device, dtype=dtype,
     )
+    params = BodyParams.default(dt, dtype=dtype, device=device)
     weights = MPCWeights.from_diagonals(DEFAULT_TUNING["Q"], DEFAULT_TUNING["R"],
-                                        dtype=f32, device=device)
+                                        dtype=dtype, device=device)
     cfg = MPCConfig(
         horizon=horizon,
         sqp_iters=sqp_iters,
@@ -53,13 +63,31 @@ def _setup(device, horizon=8, sqp_iters=2, admm_iters=10, admm_phases=2):
     x_ref, u_ref = prepare_center_trajectory(
         traj, np.array([0.0, 0.0, 0.6]), 16.8, dt, horizon + 1
     )
-    t = lambda a: torch.as_tensor(np.asarray(a), dtype=f32, device=device)
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
     x0 = np.zeros(13)
     x0[0:3] = [0.5, 0.2, -0.3]
     x0[3:6] = [0.1, 0.0, 0.05]
     x0[9] = 1.0
     x0[10:13] = [0.0, 0.0, 0.3]
     return params, scenario, weights, cfg, t(x0), t(x_ref[: horizon + 1]), t(u_ref[: horizon + 1])
+
+
+def entry(device=None, dtype=torch.float32):
+    """(fn, example_args): the single-scenario control step and its
+    arguments on `device` (default cuda), `__graft_entry__.py:63-75`."""
+    from ft_mpc_torch import resolve_device
+    from ft_mpc_torch.controllers.spiraling import get_control, init_warmstart
+    from ft_mpc_torch.ops.dynamics import robot_to_center
+
+    dev = resolve_device(device)
+    params, scenario, weights, cfg, x0, x_ref, u_ref = _setup(dev, dtype=dtype)
+    warm = init_warmstart(params, scenario, cfg, robot_to_center(scenario.r, x0))
+
+    def forward(x0, warm):
+        out = get_control(params, scenario, weights, cfg, x0, x_ref, u_ref, warm)
+        return out.u_phys, out.wrench, out.info.cost
+
+    return forward, (x0, warm)
 
 
 def _check(ok: bool, msg: str) -> None:
@@ -197,5 +225,12 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("n_shards", type=int, nargs="?", default=2)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--entry", action="store_true",
+                    help="run entry()'s step once and print its output shapes")
     a = ap.parse_args()
-    dryrun_multichip(a.n_shards, a.device)
+    if a.entry:
+        fn, args = entry(a.device)
+        out = fn(*args)
+        print("entry ok:", [list(o.shape) for o in out[:2]])
+    else:
+        dryrun_multichip(a.n_shards, a.device)

@@ -136,7 +136,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'ft_mpc_tpu'))]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 68, names\n"
+        "assert len(names) >= 73, names\n"
         "assert 'matplotlib' not in sys.modules  # viz/ imports it when a function runs\n"
         "for n in ('api', 'geometry.polytope', 'geometry.zonotope', 'geometry.invariant',\n"
         "          'geometry.scenario', 'runtime.native', 'terminal.quadratic',\n"
@@ -145,7 +145,9 @@ def test_port_imports_no_jax():
         "          'controllers.certify', 'controllers.reference_solver',\n"
         "          'controllers.dummy', 'utils.logging', 'examples.sim', 'cli',\n"
         "          'benchmarks.accuracy', 'benchmarks.sanitizer',\n"
-        "          'benchmarks.build_terminal_cache', 'benchmarks.scaling', 'parallel',\n"
+        "          'benchmarks.build_terminal_cache', 'benchmarks.scaling',\n"
+        "          'benchmarks.pareto', 'benchmarks.diag_cleanup', 'benchmarks.diag_residual',\n"
+        "          'benchmarks.diag_stub', 'benchmarks.ablate', 'parallel',\n"
         "          'parallel.mesh',\n"
         "          'parallel.distributed', 'parallel.launch', 'parallel.dryrun', 'models',\n"
         "          'models.planar', 'viz', 'viz.animate', 'viz.dashboards',\n"
