@@ -36,7 +36,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from ft_mpc_torch import resolve_device
@@ -68,6 +67,7 @@ from ft_mpc_torch.terminal.poly import (
     terminal_hessian_psd,
     terminal_value,
 )
+from ft_mpc_torch.utils.logging import span
 
 _BIG = 1e8
 N_X = 13
@@ -252,9 +252,10 @@ def shift_warmstart(warm: WarmStart, c0: torch.Tensor) -> WarmStart:
     over unshifted, as in the JAX package.  One scenario's warm start or a
     bank's (the horizon is the axis before the last).
     """
-    X = torch.cat([c0[..., None, :], warm.X[..., 2:, :], warm.X[..., -1:, :]], dim=-2)
-    U = torch.cat([warm.U[..., 1:, :], warm.U[..., -1:, :]], dim=-2)
-    y_hull = torch.cat([warm.y_hull[..., 1:, :], warm.y_hull[..., -1:, :]], dim=-2)
+    with span("ft_mpc.shift"):
+        X = torch.cat([c0[..., None, :], warm.X[..., 2:, :], warm.X[..., -1:, :]], dim=-2)
+        U = torch.cat([warm.U[..., 1:, :], warm.U[..., -1:, :]], dim=-2)
+        y_hull = torch.cat([warm.y_hull[..., 1:, :], warm.y_hull[..., -1:, :]], dim=-2)
     return WarmStart(X=X, U=U, y_hull=y_hull, y_term=warm.y_term, rho=warm.rho,
                      kinv=warm.kinv)
 
@@ -359,7 +360,7 @@ def _assemble_condensed_batch(params, bank, weights, cfg, X, U, x_ref, u_ref,
     B = X.shape[0]
     n_dec = Nt * N_U
 
-    with record_function("ft_mpc.linearize"):
+    with span("ft_mpc.linearize"):
         A_stack, B_stack, defects = _linearize(params, bank, cfg, X, U, u_ref)
 
     u_r_bar = _matvec(rot_full_inv(X[:, :-1, 9:13]), u_ref[:Nt])
@@ -368,7 +369,7 @@ def _assemble_condensed_batch(params, bank, weights, cfg, X, U, x_ref, u_ref,
     )
     h_hull = hull_b[:, None, :] - torch.einsum("bti,bfi->btf", stage_offset, hull_A)
 
-    with record_function("ft_mpc.condense"):
+    with span("ft_mpc.condense"):
         S_all, phi_all = condense(A_stack, B_stack, defects)
     S9 = S_all[:, :, :N_OPT, :]
     e0 = X[:, 1:, :N_OPT] + phi_all[:, :, :N_OPT] - x_ref[:, 1:]
@@ -376,7 +377,7 @@ def _assemble_condensed_batch(params, bank, weights, cfg, X, U, x_ref, u_ref,
     S9_run, e0_run = S9[:, :-1], e0[:, :-1]
     S9_N, e0_N = S9[:, -1], e0[:, -1]
     R_blk = torch.kron(torch.eye(Nt, dtype=dtype, device=dev), weights.R)
-    with record_function("ft_mpc.terminal"):
+    with span("ft_mpc.terminal"):
         HV = _vmap(terminal_hessian_psd)(bank.term, e0_N)  # (B, 9, 9)
         gV = _vmap(terminal_gradient)(bank.term, e0_N)  # (B, 9)
     H = 2.0 * (
@@ -427,7 +428,7 @@ def _assemble_stagewise(params, bank, weights, cfg, X, U, x_ref, u_ref,
     B = X.shape[0]
     pad13 = lambda t: torch.nn.functional.pad(t, (0, N_X - N_OPT))
 
-    with record_function("ft_mpc.linearize"):
+    with span("ft_mpc.linearize"):
         A_stack, B_stack, defects = _linearize(params, bank, cfg, X, U, u_ref)
     u_r_bar = _matvec(rot_full_inv(X[:, :-1, 9:13]), u_ref[:Nt])
     stage_offset = (
@@ -439,7 +440,7 @@ def _assemble_stagewise(params, bank, weights, cfg, X, U, x_ref, u_ref,
     e_bar = X[:, :, :N_OPT] - x_ref  # (B, Nt+1, 9)
     # terminal: half-gradient / half-Hessian of the polynomial V_f (so that
     # 2 gxN = dV/de; a quadratic V_f gives P e + p/2 and P)
-    with record_function("ft_mpc.terminal"):
+    with span("ft_mpc.terminal"):
         gV = _vmap(terminal_gradient)(bank.term, e_bar[:, -1])  # (B, 9)
         HV = _vmap(terminal_hessian_psd)(bank.term, e_bar[:, -1])  # (B, 9, 9)
     gx = pad13(torch.cat([e_bar[:, :-1] @ weights.Q, 0.5 * gV[:, None]], dim=1))
@@ -486,7 +487,9 @@ def _merit_alpha(params, bank, weights, cfg, X, U, dX, dU, x_ref, u_ref,
     Nt = cfg.horizon
     dtype, dev = X.dtype, X.device
     B = X.shape[0]
-    alphas = torch.tensor(cfg.ls_alphas, dtype=dtype, device=dev)
+    # a copy from pageable host memory: torch waits for the device's queue
+    with span("ft_mpc.sync"):
+        alphas = torch.tensor(cfg.ls_alphas, dtype=dtype, device=dev)
     nA = alphas.shape[0]
     a = alphas[:, None, None, None]
     Uc = U + a * dU  # (nA, B, Nt, 6)
@@ -585,7 +588,7 @@ def sqp_solve_batch(params: BodyParams, bank: Scenario, weights: MPCWeights,
         )
         dU = sol.x.reshape(B, Nt, N_U)
         dX = torch.einsum("btin,bn->bti", S_all, sol.x) + phi_all
-        with record_function("ft_mpc.line_search"):
+        with span("ft_mpc.line_search"):
             alpha = _merit_alpha(params, bank, weights, cfg, X, U, dX, dU, x_ref,
                                  u_ref, hull_A, hull_b, term_A, term_b)
         a = alpha[:, None, None]
@@ -599,7 +602,7 @@ def sqp_solve_batch(params: BodyParams, bank: Scenario, weights: MPCWeights,
     n_rounds = cfg.cleanup_rounds if (cfg.cleanup_iters > 0 and cfg.cleanup_k > 0) else 0
     p_ax = params_batch_axes(params)
     for _ in range(n_rounds):
-        with record_function("ft_mpc.cleanup"):
+        with span("ft_mpc.cleanup"):
             # Worst-K on QP residual + SQP step + shooting defect; torch.topk may
             # order ties differently from lax.top_k.
             K = min(cfg.cleanup_k, B)
@@ -667,7 +670,7 @@ def _sqp_iteration(params, bank, weights, cfg, x_ref, u_ref, geo, stagewise_solv
     if cfg.qp_backend == "condensed":
         qp, S_all, phi_all, defects = _assemble_condensed(
             params, bank, weights, cfg, X, U, x_ref, u_ref, *geo)
-        with record_function("ft_mpc.qp"):
+        with span("ft_mpc.qp"):
             sol = solve_mpc_qp(qp, admm_cfg, y_hull0=yh, y_term0=yt, rho0=rho)
         dU = sol.x.reshape(B, Nt, N_U)
         dX = torch.einsum("btin,bn->bti", S_all, sol.x) + phi_all
@@ -682,7 +685,7 @@ def _sqp_iteration(params, bank, weights, cfg, x_ref, u_ref, geo, stagewise_solv
         dU, dX = sol.dU, sol.dX[:, 1:]
         du_raw = torch.abs(dU).amax(dim=(1, 2))
         yt_new = torch.cat([sol.y_term, yt[:, T_rows:]], dim=1)
-    with record_function("ft_mpc.line_search"):
+    with span("ft_mpc.line_search"):
         alpha = _merit_alpha(params, bank, weights, cfg, X, U, dX, dU, x_ref, u_ref, *geo)
     a = alpha[:, None, None]
     new = _Carry(X=torch.cat([X[:, :1], X[:, 1:] + a * dX], dim=1), U=U + a * dU,
@@ -715,7 +718,9 @@ def _sqp_scan(params, bank, weights, cfg, c0, x_ref, u_ref, warm: WarmStart,
         # iteration; the values are those of the full loop).
         for _ in range(cfg.refine_iters):
             need = torch.maximum(info[0], info[3]) > cfg.refine_tol
-            if not bool(need.any()):
+            with span("ft_mpc.sync"):
+                needed = bool(need.any())
+            if not needed:
                 break
             new, new_info = step(cfg.refine_admm or cfg.admm, carry)
             keep = lambda a, b: torch.where(need.view(-1, *(1,) * (a.dim() - 1)), b, a)
@@ -799,7 +804,7 @@ def sqp_solve_batch_stagewise(params: BodyParams, bank: Scenario, weights: MPCWe
     n_rounds = cfg.cleanup_rounds if (cfg.cleanup_iters > 0 and cfg.cleanup_k > 0) else 0
     p_ax = params_batch_axes(params)
     for _ in range(n_rounds):
-        with record_function("ft_mpc.cleanup"):
+        with span("ft_mpc.cleanup"):
             K = min(cfg.cleanup_k, c0.shape[0])
             # same transient-aware worst-K key as the condensed batch path
             _, idx = torch.topk(info.r_prim + info.du_norm + info.defect, K)
@@ -847,14 +852,15 @@ def init_warmstart_batch(params: BodyParams, bank: Scenario, weights: MPCWeights
 def _wrench_command(scenario: Scenario, c0, u0, u_ref0):
     """The first SQP input un-rotated: u0 + rotated nominal + compensation,
     turned into the robot frame by the spiral frame quaternion beta."""
-    u_nom = _matvec(rot_full_inv(c0[..., 9:13]), u_ref0)
-    return _matvec(rot_full(scenario.beta), u0 + u_nom + scenario.u_comp)
+    with span("ft_mpc.wrench"):
+        u_nom = _matvec(rot_full_inv(c0[..., 9:13]), u_ref0)
+        return _matvec(rot_full(scenario.beta), u0 + u_nom + scenario.u_comp)
 
 
 def _finalize_control(params: BodyParams, scenario: Scenario, c0, u0, u_ref0):
     """Wrench command and its per-scenario (plain) thruster allocation."""
     u_res = _wrench_command(scenario, c0, u0, u_ref0)
-    with record_function("ft_mpc.allocation"):
+    with span("ft_mpc.allocation"):
         alloc = allocate_thrusters(
             u_res, params.D, scenario.u_ub, scenario.faulty_force_gen,
             scenario.hull_A, scenario.hull_b, scenario.hull_mask,
@@ -872,11 +878,12 @@ def get_control_rows(params: BodyParams, bank: Scenario, weights: MPCWeights,
     JAX package's `vmap(get_control)` gives it: `sqp_solve_rows`, then the
     wrench transform and the plain `allocate_thrusters`.  No kernel runs.
     """
-    c0 = robot_to_center(bank.r, x0)
-    new_warm, info = sqp_solve_rows(params, bank, weights, cfg, c0, x_ref, u_ref, warm)
-    u_res, alloc = _finalize_control(params, bank, c0, new_warm.U[:, 0], u_ref[0])
-    return ControlOutput(u_phys=alloc.u_phys, wrench=u_res, c0=c0, warm=new_warm,
-                         info=info, alloc=alloc)
+    with span("ft_mpc.step"):
+        c0 = robot_to_center(bank.r, x0)
+        new_warm, info = sqp_solve_rows(params, bank, weights, cfg, c0, x_ref, u_ref, warm)
+        u_res, alloc = _finalize_control(params, bank, c0, new_warm.U[:, 0], u_ref[0])
+        return ControlOutput(u_phys=alloc.u_phys, wrench=u_res, c0=c0, warm=new_warm,
+                             info=info, alloc=alloc)
 
 
 def get_control(params: BodyParams, scenario: Scenario, weights: MPCWeights,
@@ -904,19 +911,20 @@ def get_control_batch(params: BodyParams, bank: Scenario, weights: MPCWeights,
     (short horizons) or 'stagewise' (long horizons); the allocation is the
     same kernel for both.
     """
-    _check_backend(cfg)
-    c0 = robot_to_center(bank.r, x0)
-    solve = sqp_solve_batch_stagewise if cfg.qp_backend == "stagewise" else sqp_solve_batch
-    new_warm, info = solve(params, bank, weights, cfg, c0, x_ref, u_ref, warm)
-    u_res = _wrench_command(bank, c0, new_warm.U[:, 0], u_ref[0])
-    with record_function("ft_mpc.allocation"):
-        alloc = allocate_thrusters_lanes(
-            u_res, params.D, bank.u_ub, bank.faulty_force_gen,
-            bank.hull_A, bank.hull_b, bank.hull_mask,
-            bank.gen_G, bank.gen_c, bank.gen_L, params.max_thrust,
-        )
-    return ControlOutput(u_phys=alloc.u_phys, wrench=u_res, c0=c0,
-                         warm=new_warm, info=info, alloc=alloc)
+    with span("ft_mpc.step"):
+        _check_backend(cfg)
+        c0 = robot_to_center(bank.r, x0)
+        solve = sqp_solve_batch_stagewise if cfg.qp_backend == "stagewise" else sqp_solve_batch
+        new_warm, info = solve(params, bank, weights, cfg, c0, x_ref, u_ref, warm)
+        u_res = _wrench_command(bank, c0, new_warm.U[:, 0], u_ref[0])
+        with span("ft_mpc.allocation"):
+            alloc = allocate_thrusters_lanes(
+                u_res, params.D, bank.u_ub, bank.faulty_force_gen,
+                bank.hull_A, bank.hull_b, bank.hull_mask,
+                bank.gen_G, bank.gen_c, bank.gen_L, params.max_thrust,
+            )
+        return ControlOutput(u_phys=alloc.u_phys, wrench=u_res, c0=c0,
+                             warm=new_warm, info=info, alloc=alloc)
 
 
 class BatchSpiralingController(torch.nn.Module):

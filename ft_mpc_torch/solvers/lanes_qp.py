@@ -21,11 +21,11 @@ import ctypes
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from ft_mpc_torch import kernels
 from ft_mpc_torch.solvers.admm import chol_inverse
 from ft_mpc_torch.solvers.mpc_qp import StructuredADMMConfig, StructuredMPCQP
+from ft_mpc_torch.utils.logging import span
 
 N_U = 6
 
@@ -52,7 +52,8 @@ def exact_kinv(K: torch.Tensor) -> torch.Tensor:
     A scenario whose factorization fails gets an all-NaN inverse, as the
     JAX path does; `newton_kinv`'s rescue test sees it as non-finite.
     """
-    return chol_inverse(K)
+    with span("ft_mpc.kinv_exact"):
+        return chol_inverse(K)
 
 
 def newton_kinv(K: torch.Tensor, X0: torch.Tensor, iters: int) -> torch.Tensor:
@@ -81,12 +82,16 @@ def newton_kinv(K: torch.Tensor, X0: torch.Tensor, iters: int) -> torch.Tensor:
     # budget: iters Newton steps leave resid^(2^iters); require < ~1e-2
     threshold = float(0.01 ** (1.0 / 2**iters))
     # One host sync per refresh (the JAX path's lax.cond): only one branch
-    # is computed.  A device-side select without the sync is a place for a
-    # later change.
+    # is computed.  Both flags (rescue, and rescue for a non-finite
+    # residual) come over in one read.  A device-side select without the
+    # sync is a place for a later change.
     nonfinite = ~torch.isfinite(resid)
-    if bool(((resid >= threshold) | nonfinite).any()):
+    flags = torch.stack([((resid >= threshold) | nonfinite).any(), nonfinite.any()])
+    with span("ft_mpc.sync"):
+        rescue, rescue_nonfinite = flags.tolist()
+    if rescue:
         newton_kinv.rescues += 1
-        newton_kinv.rescues_nonfinite += int(bool(nonfinite.any()))
+        newton_kinv.rescues_nonfinite += int(rescue_nonfinite)
         return exact_kinv(K)
     X, Yl = s * X0, s * Y
     for i in range(iters):
@@ -276,7 +281,7 @@ def solve_mpc_qp_lanes(
     factored exactly (and refactored exactly per phase).  There are no
     padded lanes in the port, so no padding rho is needed.
     """
-    with record_function("ft_mpc.qp"):
+    with span("ft_mpc.qp"):
         return _solve_phases(qp, cfg, y_hull0, y_term0, rho0, kinv0, newton_iters)
 
 
@@ -299,7 +304,7 @@ def _solve_phases(qp, cfg, y_hull0, y_term0, rho0, kinv0, newton_iters) -> Lanes
     H32 = qp.H.to(f32)
 
     def make_kinv(rho, kinv_prev, iters):
-        with record_function("ft_mpc.kinv"):
+        with span("ft_mpc.kinv"):
             K = H32 + cfg.sigma * eye + rho[:, None, None] * M_rho
             if kinv_prev is None:
                 return exact_kinv(K)
@@ -312,7 +317,7 @@ def _solve_phases(qp, cfg, y_hull0, y_term0, rho0, kinv0, newton_iters) -> Lanes
     zh = torch.clamp(qp.h_hull, max=0.0)
     zt = torch.clamp(qp.h_term, max=0.0)
     for _ in range(cfg.phases):
-        with record_function("ft_mpc.admm"):
+        with span("ft_mpc.admm"):
             x, zh, zt, yh_n, yt_n = (
                 t.to(dtype) for t in admm_lanes(
                     kinv, qp.hull_A, qp.h_hull, qp.G_term, qp.h_term, qp.g,

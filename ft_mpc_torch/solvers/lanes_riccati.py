@@ -28,7 +28,6 @@ import functools
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from ft_mpc_torch import kernels
 from ft_mpc_torch.solvers.riccati import (
@@ -36,6 +35,7 @@ from ft_mpc_torch.solvers.riccati import (
     resolve_bwd_plain,
     resolve_fwd_plain,
 )
+from ft_mpc_torch.utils.logging import span
 
 N_X = 13
 N_U = 6
@@ -282,7 +282,7 @@ def prepare_resolve(fact: LQRFactorization) -> RiccatiPrep:
     f = LQRFactorization(*(x.to(torch.float32).contiguous() for x in fact))
     if f.F.device.type == "cpu":
         return RiccatiPrep(f, dtype, "plain", 0, None, None)
-    with record_function("ft_mpc.riccati"):
+    with span("ft_mpc.riccati"):
         prep = prepared(f, riccati_plan(*f.F.shape[:2])["chunk"])
     return prep._replace(dtype=dtype)
 
@@ -305,6 +305,6 @@ def lqr_resolve_lanes(fact: LQRFactorization | RiccatiPrep, q, r, qN, x0):
         ks = resolve_bwd_plain(f.F, f.B, f.K, f.Quu_inv, f.PC, q, r, qN)
         X, U = resolve_fwd_plain(f.F, f.B, f.c, f.K, ks, x0)
     else:
-        with record_function("ft_mpc.riccati"):
+        with span("ft_mpc.riccati"):
             X, U = riccati_split_lanes(prep, q, r, qN, x0)
     return X.to(prep.dtype), U.to(prep.dtype)

@@ -33,7 +33,6 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from ft_mpc_torch.solvers.lanes_riccati import lqr_resolve_lanes, prepare_resolve
 from ft_mpc_torch.solvers.riccati import (
@@ -43,6 +42,7 @@ from ft_mpc_torch.solvers.riccati import (
     lqr_resolve_assoc,
     lqr_solve,
 )
+from ft_mpc_torch.utils.logging import span
 
 
 class StagewiseMPCQP(NamedTuple):
@@ -186,13 +186,13 @@ def _solve_batched(qp: StagewiseMPCQP, cfg: StagewiseConfig, y_hull0, y_term0, r
             resolve = {"lanes": lqr_resolve_lanes, "scan": lqr_resolve,
                        "scan-assoc": lqr_resolve_assoc}[mode]
             # one batched Riccati factorization for the whole phase (rho fixed)
-            with record_function("ft_mpc.lqr_factor"):
+            with span("ft_mpc.lqr_factor"):
                 fact = lqr_factor(qp.A, qp.B, qp.c, Q_stage, R_stage, QN)
             if mode == "lanes":  # its preparation, in the span ft_mpc.riccati on the card
                 fact = prepare_resolve(fact)
         soft_t, soft_b = y_max / rho2, y_max / rho3
 
-        with record_function("ft_mpc.stagewise_admm"):
+        with span("ft_mpc.stagewise_admm"):
             for _ in range(cfg.iters):
                 vh = zh - yh / rho3
                 vt = zt - yt / rho2

@@ -1,6 +1,6 @@
 """The port's validation tooling vs the JAX package: the KKT certificate, the
 SLSQP reference solver, the accuracy harness's same-state legs, and the
-small helpers (`DummyController`, `PhaseTimer`).
+small helpers (`DummyController`, the span helper).
 
 Float64 on the CPU on both sides unless said otherwise:
   * `kkt_residuals` at the point of tests/test_certify.py:55 (the (10, 11)
@@ -246,20 +246,26 @@ def test_dummy_controller():
 
 
 def test_phase_timer_and_annotation():
-    from ft_mpc_torch.utils.logging import Logger, PhaseTimer, trace_annotation
+    """The program's span helper (its profiler range and its recorder's
+    period totals; it replaced the phase timer and the bare annotation)
+    and the logger."""
+    from ft_mpc_torch.utils.logging import Logger, Recorder, span
 
-    timer = PhaseTimer()
+    rec = Recorder()
+    rec.close(rec.open("ft_mpc.setup_only"))
     for _ in range(2):
-        with timer.phase("solve", block_on={"x": torch.ones(3)}):
-            time.sleep(0.01)
-    with timer.phase("alloc"):
-        pass
-    assert timer.counts == {"solve": 2, "alloc": 1}
-    assert timer.totals["solve"] >= 0.02
-    report = timer.report()
-    assert report.splitlines()[0].startswith("solve") and "x2" in report
+        step = rec.open("ft_mpc.step")
+        solve = rec.open("ft_mpc.solve")
+        time.sleep(0.01)
+        rec.close(solve)
+        rec.close(step)
+    assert rec.setup.count("ft_mpc.setup_only") == 1
+    assert [p.step for p in rec.periods()] == [0, 1]
+    for p in rec.periods():
+        assert p.count("ft_mpc.solve") == 1 and p.self_ns("ft_mpc.solve") >= 10**7
+        assert p.self_ns("ft_mpc.step") == p.host_ns("ft_mpc.step") - p.host_ns("ft_mpc.solve")
     with torch.profiler.profile() as prof:
-        with trace_annotation("ft_mpc.test_range"):
+        with span("ft_mpc.test_range"):
             torch.ones(2) + 1
     assert any(e.key == "ft_mpc.test_range" for e in prof.key_averages())
     Logger("ft_mpc_torch.test").info("logger ok")
