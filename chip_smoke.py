@@ -196,6 +196,20 @@
    - 13e: `ablate.main` on two variants, 2 rounds: no kernel launch;
    - 13f: `entry()`'s step once: shapes (16,), (6,), (), finite, no launch.
 
+14. Holds the linearization kernel (`ft_mpc_torch/csrc/linearize.cu`,
+   `ops.linearize.linearize_lanes`) against its plain version
+   (`linearize_plain`, vmap(jacfwd)) on the card at B=2048 / Nt=15 (the
+   condensed path), B=512 / Nt=240 (the stagewise path) and B=64 / Nt=240
+   (its cleanup), on each path's warm-start trajectory with seeded inputs:
+   float32 within TOL_LINEARIZE and float64 within TOL_LINEARIZE_F64 of
+   the scale of A, of B and of the states (`lin_gap`), both float32 sides'
+   distance from the float64 plain version
+   printed; the kernel timed alone (CUDA events, median of 3) beside its
+   bound in bytes and operations, the wrapper's calls back to back and the
+   plain version; then counts its launches on 2 chained steps of both paths:
+   3 a step (two SQP iterations and the cleanup), 1 more in the condensed
+   `init_warmstart_batch`, no plain call.
+
 Prints the card's name and power limit, one JSON line with every kernel's
 numbers, and as its last line {"ok": true, "device": {...}}.  Exits with a
 non-zero code and prints no result without a CUDA device, or when the
@@ -375,6 +389,18 @@ RESIDUAL_BATCH = 128
 STAGEWISE_STEPS = 2
 ABLATE_VARIANTS = ("full (3 sqp, admm 25x2)", "sqp=1")
 ABLATE_REPS = 2
+# section 14: the linearization kernel
+LIN_SHAPES = ((BATCH, HORIZON), (SW_BATCH, SW_HORIZON), (64, SW_HORIZON))
+LIN_STEPS = 2  # chained steps of each path whose linearizations are counted
+# forward mode's flops a stage, counted from csrc/linearize.cu (an FMA two):
+# the primal once and each of the 19 tangents
+LIN_PRIMAL_FLOPS = 928
+LIN_TANGENT_FLOPS = 1384
+# kernel against vmap(jacfwd), relative to the scale of A, of B and of the
+# states (`lin_gap`): float32, the same few hundred roundings of 6e-8 in
+# another order and with fused multiply-adds; float64, the same at 1.1e-16
+TOL_LINEARIZE = 1e-5
+TOL_LINEARIZE_F64 = 1e-12
 CONDENSED_KERNELS = ("condense_lanes", "admm_lanes", "allocate_thrusters_lanes")
 STAGEWISE_KERNELS = ("riccati_bwd_lanes", "riccati_fwd_lanes", "riccati_prepare_lanes",
                      "allocate_thrusters_lanes")
@@ -3196,6 +3222,126 @@ def ablate_phase(device, card: str, check) -> None:
           f"entry(): shapes {[tuple(o.shape) for o in out]}, launches {launched}")
 
 
+# ---------------------------------------------------------------------------
+# section 14: the linearization kernel (ft_mpc_torch/csrc/linearize.cu)
+# ---------------------------------------------------------------------------
+
+
+def linearize_inputs(device, B: int, Nt: int, dtype=torch.float32) -> tuple:
+    """(params, bank, X, U, u_ref) of the path at horizon Nt on B rows: the
+    warm-start trajectory from its states and seeded inputs of +-0.2 N."""
+    ctx = Ctx(device, dtype, B, stagewise_horizon=0 if Nt == HORIZON else Nt)
+    c0 = ctx.sp.robot_to_center(ctx.bank.r, ctx.x0)
+    warm = ctx.sp.init_warmstart(ctx.params, ctx.bank, ctx.cfg, c0)
+    U = np.random.default_rng(B + Nt).uniform(-0.2, 0.2, (B, Nt, 6))
+    return (ctx.params, ctx.bank, warm.X, torch.as_tensor(U, dtype=dtype, device=device),
+            ctx.u_ref)
+
+
+def lin_gap(got, ref, X) -> float:
+    """The largest distance of the linearization's outputs (A, B, defects)
+    from the reference's, A and B over the reference output's largest entry,
+    the defects over the states' (a defect is the difference of two states,
+    so its rounding scales with theirs)."""
+    scales = (ref[0].abs().max(), ref[1].abs().max(), X.abs().max())
+    return max(float((g.double() - r.double()).abs().max() / s)
+               for g, r, s in zip(got, ref, scales))
+
+
+def linearize_bound(args, out) -> tuple[float, str]:
+    """`bound_ms` of one linearization: each input read once (u_ref's Nt
+    rows) and the outputs written once; forward mode's flops."""
+    params, bank, X, U, u_ref = args
+    B, Nt = U.shape[:2]
+    read = (X, U, u_ref[:Nt], bank.faulty_force_gen, bank.r, bank.u_comp,
+            params.mass, params.inertia, params.inertia_inv, params.dt)
+    return bound_ms(nbytes(*read, *out), B * Nt * (LIN_PRIMAL_FLOPS + 19 * LIN_TANGENT_FLOPS))
+
+
+def linearize_row(device, B: int, Nt: int) -> dict:
+    """The kernel at one shape: held in float32 and float64, timed."""
+    from ft_mpc_torch.ops import linearize as lin
+
+    args = linearize_inputs(device, B, Nt)
+    params, bank, X, U, u_ref = args
+    n0, p0 = lin.linearize_lanes.launches, lin.linearize_lanes.plain_calls
+    got = lin.linearize_lanes(*args, Nt)
+    sync(device)
+    calls = (lin.linearize_lanes.launches - n0, lin.linearize_lanes.plain_calls - p0)
+    ref = lin.linearize_plain(*args, Nt)
+    f64 = (tree_to(params, device, torch.float64), tree_to(bank, device, torch.float64),
+           X.double(), U.double(), u_ref.double())
+    got64 = lin.linearize_lanes(*f64, Nt)
+    ref64 = lin.linearize_plain(*f64, Nt)
+    b_ms, b_by = linearize_bound(args, got)
+    row = {
+        "name": "linearize_lanes", "route": "cuda",
+        "source": "ft_mpc_torch/csrc/linearize.cu",
+        "replaces": "none (XLA fused jax.jacfwd under jit)",
+        "shape": f"B={B} Nt={Nt}", "calls": calls,
+        "max_abs_err": max(float((g - r).abs().max()) for g, r in zip(got, ref)),
+        "max_rel_err": lin_gap(got, ref, X), "tol": None, "tol_rel": TOL_LINEARIZE,
+        "max_rel_err_f64": lin_gap(got64, ref64, X),
+        "kernel_vs_f64": lin_gap(got, ref64, X), "plain_vs_f64": lin_gap(ref, ref64, X),
+        "contiguous": all(t.is_contiguous() for t in got),
+        "ms": time_ms(lambda: lin.linearize_lanes(*args, Nt), 20, device, device_only=True),
+        "call_ms": time_ms(lambda: lin.linearize_lanes(*args, Nt), 20, device),
+        "plain_ms": time_ms(lambda: lin.linearize_plain(*args, Nt), 3, device),
+        "ms_f64": time_ms(lambda: lin.linearize_lanes(*f64, Nt), 20, device, device_only=True),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+    return with_share(row)
+
+
+def linearize_launches(device) -> dict:
+    """Launches and plain calls of the linearization in `init` and in
+    LIN_STEPS chained steps of the condensed and the stagewise path."""
+    from ft_mpc_torch.ops import linearize as lin
+
+    out = {}
+    for label, B, Nt in (("condensed", BATCH, 0), ("stagewise", SW_BATCH, SW_HORIZON)):
+        ctx = Ctx(device, torch.float32, B, stagewise_horizon=Nt)
+        n0, p0 = lin.linearize_lanes.launches, lin.linearize_lanes.plain_calls
+        warm = ctx.init()
+        sync(device)
+        n_init = lin.linearize_lanes.launches - n0
+        for _ in range(LIN_STEPS):
+            warm = ctx.step(warm).warm
+        sync(device)
+        out[label] = {"init": n_init,
+                      "per_step": (lin.linearize_lanes.launches - n0 - n_init) / LIN_STEPS,
+                      "plain_calls": lin.linearize_lanes.plain_calls - p0}
+        del ctx, warm
+        torch.cuda.empty_cache()
+    return out
+
+
+def drive_linearize(device, card: str, check) -> list:
+    """Section 14 (module docstring); returns the kernel rows."""
+    rows = []
+    for B, Nt in LIN_SHAPES:
+        r = linearize_row(device, B, Nt)
+        log("kernel: " + json.dumps(r))
+        check(r["calls"] == (1, 0), f"linearize_lanes at {r['shape']}: (launches, plain "
+              f"calls) {r['calls']}, not (1, 0)")
+        check(kernel_agrees(r) and r["contiguous"],
+              f"linearize_lanes ({r['shape']}) disagrees with its plain version: {r}")
+        check(r["max_rel_err_f64"] <= TOL_LINEARIZE_F64,
+              f"linearize_lanes ({r['shape']}) float64 off its plain version by "
+              f"{r['max_rel_err_f64']:.3e}")
+        rows.append(r)
+        torch.cuda.empty_cache()
+    counted = linearize_launches(device)
+    log(f"linearize launches: {json.dumps(counted)}; card: {card}")
+    want = {"condensed": {"init": 1, "per_step": 3, "plain_calls": 0},
+            "stagewise": {"init": 0, "per_step": 3, "plain_calls": 0}}
+    check(counted == want, f"linearize launches {counted}, not {want}")
+    for r in rows:
+        r["launches"] = counted["condensed" if r["shape"] == f"B={BATCH} Nt={HORIZON}"
+                                else "stagewise"]["per_step"]
+    return rows
+
+
 def drive_last_scripts(device, card: str, check) -> list:
     """Section 13; returns its two ADMM kernel rows."""
     pareto_phase(device, card, check)
@@ -3328,6 +3474,7 @@ def main(argv=None) -> int:
         (11, lambda: drive_bench_scripts(device, card, check)),
         (12, lambda: rows.extend(drive_census_scripts(device, card, check))),
         (13, lambda: rows.extend(drive_last_scripts(device, card, check))),
+        (14, lambda: rows.extend(drive_linearize(device, card, check))),
     )
     for n, drive in sections:
         torch.cuda.empty_cache()

@@ -13,8 +13,8 @@ Two paths, as in the JAX package:
     `get_control` run it on one scenario.
 
 Each control step, per SQP iteration: linearize the RK4 orbit-center
-dynamics along the warm trajectory (`torch.func.vmap(jacfwd)` over the
-flattened (B * Nt) stages), then
+dynamics along the warm trajectory (`ops.linearize.linearize_lanes`: kernel
+`csrc/linearize.cu` over the B * Nt stages), then
   * condensed (short horizons): condense (kernel `csrc/condense.cu`),
     assemble the dense 90-variable QP, refresh K^{-1}, run the ADMM kernel;
   * stagewise (long horizons, `cfg.stagewise.mode='lanes'`): assemble the
@@ -45,6 +45,13 @@ from ft_mpc_torch.ops.dynamics import (
     _matvec,
     center_step,
     robot_to_center,
+)
+from ft_mpc_torch.ops.linearize import (
+    linearize_lanes,
+    params_batch_axes,
+    params_row as _params_row,
+    stage_dynamics as _stage_dynamics,
+    stage_rows as _stage_rows,
 )
 from ft_mpc_torch.ops.quaternion import rot_full, rot_full_inv
 from ft_mpc_torch.solvers.allocation import AllocationResult, allocate_thrusters
@@ -153,40 +160,6 @@ def _box_bounds(weights: MPCWeights, dtype, device):
     return xlb, xub
 
 
-def params_batch_axes(params: BodyParams) -> BodyParams:
-    """vmap in_dims for a possibly scenario-batched `BodyParams`.
-
-    A leaf whose ndim exceeds its canonical rank (mass/dt 0, matrices 2)
-    carries a leading scenario axis (0); the rest are shared (None).
-    """
-    base = BodyParams(mass=0, inertia=2, inertia_inv=2, max_thrust=0, D=2, dt=0)
-    return BodyParams(
-        *[0 if leaf.dim() > nd else None for leaf, nd in zip(params, base)]
-    )
-
-
-def _params_row(params: BodyParams, p_ax: BodyParams, idx) -> BodyParams:
-    """Gather rows idx from the batched leaves of params (shared leaves pass)."""
-    return BodyParams(
-        *[leaf[idx] if ax == 0 else leaf for leaf, ax in zip(params, p_ax)]
-    )
-
-
-class _StageData(NamedTuple):
-    """The scenario leaves the stage dynamics read (gathered per stage row)."""
-
-    faulty_force_gen: torch.Tensor
-    r: torch.Tensor
-    u_comp: torch.Tensor
-
-
-def _stage_rows(params, bank: Scenario, rows):
-    """Per-row plant and stage data for flattened rows -> scenario index."""
-    p_ax = params_batch_axes(params)
-    sd = _StageData(bank.faulty_force_gen[rows], bank.r[rows], bank.u_comp[rows])
-    return _params_row(params, p_ax, rows), p_ax, sd
-
-
 class WarmStart(NamedTuple):
     """Batched (B, ...) on the bank paths; one scenario's has no B axis."""
 
@@ -260,17 +233,6 @@ def shift_warmstart(warm: WarmStart, c0: torch.Tensor) -> WarmStart:
                      kinv=warm.kinv)
 
 
-def _stage_dynamics(params: BodyParams, scenario, x, u, u_ref_t):
-    """Discrete center dynamics of a stage under deviation input u.
-
-    Total commanded wrench = u + rot(x) u_ref + u_comp; `scenario` is any
-    object with faulty_force_gen, r and u_comp (a `Scenario` or `_StageData`).
-    """
-    u_r = _matvec(rot_full_inv(x[..., 9:13]), u_ref_t)
-    return center_step(params, scenario.faulty_force_gen, scenario.r, x,
-                       u + u_r + scenario.u_comp)
-
-
 def _condense(A_stack, B_stack, defects, horizon):
     """Prediction matrices delta_x_t = S_t delta_U + phi_t (plain recursion).
 
@@ -291,31 +253,12 @@ def _masked_geometry(scenario: Scenario):
 
 
 def _linearize(params, bank: Scenario, cfg: MPCConfig, X, U, u_ref):
-    """Batched dynamics values + jacobians along (X, U).
+    """Batched dynamics values + jacobians along (X, U): `linearize_lanes`
+    (the kernel `csrc/linearize.cu` on the card, vmap(jacfwd) on the CPU).
 
-    vmap(jacfwd) over the flattened (B * Nt) stages; batched plant leaves
-    are gathered per stage row and mapped over axis 0, shared ones are not.
-    Returns A (B,Nt,13,13), B (B,Nt,13,6), defects (B,Nt,13).
+    Returns A (B,Nt,13,13), B (B,Nt,13,6) (both contiguous), defects (B,Nt,13).
     """
-    B, Nt = X.shape[0], cfg.horizon
-    rows = torch.arange(B, device=X.device).repeat_interleave(Nt)
-    prow, p_ax, sd = _stage_rows(params, bank, rows)
-
-    def f(p, s, x, u, ur):
-        out = _stage_dynamics(p, s, x, u, ur)
-        return out, out
-
-    jac = torch.func.jacfwd(f, argnums=(2, 3), has_aux=True)
-    (A, Bm), f_vals = _vmap(jac, in_dims=(p_ax, 0, 0, 0, 0))(
-        prow, sd, X[:, :-1].reshape(B * Nt, N_X), U.reshape(B * Nt, N_U),
-        u_ref[:Nt].repeat(B, 1),
-    )
-    defects = f_vals.reshape(B, Nt, N_X) - X[:, 1:]
-    # contiguous: vmap(jacfwd) hands back strided views, and the kernels that
-    # read the jacobians (condensing once, the Riccati sweeps every ADMM
-    # iteration) would otherwise copy them on every call
-    return (A.reshape(B, Nt, N_X, N_X).contiguous(),
-            Bm.reshape(B, Nt, N_X, N_U).contiguous(), defects)
+    return linearize_lanes(params, bank, X, U, u_ref, cfg.horizon)
 
 
 def _ext_rows(weights: MPCWeights, X, S_all, phi_all, stage_offset):

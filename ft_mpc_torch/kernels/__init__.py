@@ -22,7 +22,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build"
-SOURCES = ("condense", "admm", "alloc", "riccati")
+SOURCES = ("condense", "admm", "alloc", "riccati", "linearize")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -123,8 +123,8 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
-    """Kernel inputs must be contiguous float32 on the current CUDA device."""
+def require_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
+    """Kernel inputs must be contiguous `dtype` on the current CUDA device."""
     for t in tensors:
         # the device type first: a build without CUDA has no current device to ask for
         if t.device.type != "cuda":
@@ -132,7 +132,12 @@ def require_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
         dev = torch.cuda.current_device()
         if t.device.index != dev:
             raise ValueError(f"{name}: tensor on {t.device}, kernel runs on cuda:{dev}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: dtype {t.dtype}, kernel takes float32")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: dtype {t.dtype}, kernel takes {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: kernel takes contiguous tensors")
+
+
+def require_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
+    """Kernel inputs must be contiguous float32 on the current CUDA device."""
+    require_cuda(name, torch.float32, *tensors)

@@ -4,7 +4,7 @@
 Every function is functional (no in-place writes, no `.item()`), so it runs
 on any leading batch shape and under `torch.func.vmap` / `jacfwd`.  Plant
 leaves may carry a leading row axis matching the state's (per-scenario
-mass/inertia, see `controllers.spiraling.params_batch_axes`) or be shared:
+mass/inertia, see `ops.linearize.params_batch_axes`) or be shared:
 mass and dt are broadcast with `[..., None]`, matrices with batched matmul.
 """
 

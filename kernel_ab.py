@@ -3,6 +3,7 @@
 
     python3 kernel_ab.py OLD_ROOT                   # from the root of a checkout
     python3 kernel_ab.py OLD_ROOT --only riccati    # one source's cases
+    python3 kernel_ab.py OLD_ROOT --only linearize
 
 OLD_ROOT is the root of another checkout of the repo (for example a `git
 archive` of the parent commit).  Its `ft_mpc_torch/csrc/condense.cu`,
@@ -49,6 +50,13 @@ against the plain sweeps within TOL_RICCATI, and both preparations timed.
 The new build's re-solve is also timed at other chunk lengths on the same
 inputs (`chunk_ms`).
 
+The linearization (`csrc/linearize.cu`, where OLD_ROOT has it) runs at
+chip_smoke's LIN_SHAPES on each path's warm-start trajectory with seeded
+inputs (`chip_smoke.linearize_inputs`): both builds' `linearize_f32`
+through the same ctypes code, held against `linearize_plain` within
+TOL_LINEARIZE (`chip_smoke.lin_gap`).  Without `--only`, every source
+OLD_ROOT has is built and compared.
+
 Prints the card's name and power limit and one JSON line per case.
 """
 
@@ -87,9 +95,11 @@ RICCATI_PAIR = {"riccati_bwd_f32": [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes
                                                             ctypes.c_void_p],
                 "riccati_fwd_f32": [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int,
                                                             ctypes.c_void_p]}
+LINEARIZE_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 # {source: {launcher: argtypes}}; a launcher OLD_ROOT's library lacks is left out
 ARGS = {"condense": {"condense_f32": CONDENSE_ARGS}, "admm": {"admm_f32": ADMM_ARGS},
-        "alloc": {"alloc_f32": ALLOC_ARGS}, "riccati": {**RICCATI_SPLIT, **RICCATI_PAIR}}
+        "alloc": {"alloc_f32": ALLOC_ARGS}, "riccati": {**RICCATI_SPLIT, **RICCATI_PAIR},
+        "linearize": {"linearize_f32": LINEARIZE_ARGS}}
 # chunk lengths the re-solve is also timed at (Nt=240: 1 to 16 chunks)
 RICCATI_CHUNKS = (240, 120, 80, 60, 40, 30, 24, 20, 15)
 RICCATI_MIDDLE = (128, 256, 384)  # rows of the B=512 capture, timed as well
@@ -384,12 +394,15 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     print(f"card: {cs.card_line()}", flush=True)
     cs.build_kernels()
-    old = build_old(old_root, [only] if only else list(ARGS))
+    have = [n for n in ARGS if (old_root / "ft_mpc_torch" / "csrc" / f"{n}.cu").is_file()]
+    old = build_old(old_root, [only] if only else have)
     results = iter(())
     if only in (None, "riccati"):
         results = riccati_results(old, device)
     if only in (None, "condense", "admm", "alloc"):
         results = itertools.chain(results, condensed_results(old, device, only))
+    if "linearize" in old:
+        results = itertools.chain(results, linearize_results(old, device))
 
     ok = True
     for r in results:  # each printed as it comes
@@ -403,6 +416,8 @@ def main(argv=None) -> int:
             ok &= r["new_max_rel_err"] <= cs.TOL_ADMM
         elif r["kernel"] == "riccati":
             ok &= r["new_max_rel_err"] <= cs.TOL_RICCATI
+        elif r["kernel"] == "linearize":
+            ok &= r["new_max_rel_err"] <= cs.TOL_LINEARIZE
         else:
             # the hull test keeps its rounding: the same decision as the old kernel on every row
             v = r["new_vs_plain"]
@@ -410,6 +425,41 @@ def main(argv=None) -> int:
                    and r["new_vs_old"]["hull_rows"] == 0)
     print(f"card: {cs.card_line()}", flush=True)
     return 0 if ok else 1
+
+
+def call_linearize(fn, args, Nt):
+    """One launch of a build's `linearize_f32`, as `ops.linearize` makes it."""
+    from ft_mpc_torch import kernels
+    from ft_mpc_torch.ops import linearize as lin
+
+    B, Nt, strides, t = lin._check(*args, Nt)
+    X = t["X"]
+    outs = [torch.empty(shape, dtype=X.dtype, device=X.device)
+            for shape in ((B, Nt, 13, 13), (B, Nt, 13, 6), (B, Nt, 13))]
+    err = fn(*(v.data_ptr() for v in t.values()), *(o.data_ptr() for o in outs), *strides,
+             B, Nt, kernels.stream_of(X))
+    if err:
+        raise RuntimeError(f"linearize_f32: CUDA error {err}")
+    return outs
+
+
+def linearize_results(old, device):
+    """The linearization at chip_smoke's LIN_SHAPES (module docstring).
+    Runs when first iterated."""
+    from ft_mpc_torch import kernels
+    from ft_mpc_torch.ops import linearize as lin
+
+    fns = (old["linearize"]["linearize_f32"],
+           kernels.function("linearize", "linearize_f32", LINEARIZE_ARGS))
+    for B, Nt in cs.LIN_SHAPES:
+        args = cs.linearize_inputs(device, B, Nt)
+        ref = lin.linearize_plain(*args, Nt)
+        errs = [cs.lin_gap(call_linearize(fn, args, Nt), ref, args[2]) for fn in fns]
+        b_ms, b_by = cs.linearize_bound(args, ref)
+        yield {"kernel": "linearize", "shape": f"B={B} Nt={Nt}", "bound_ms": b_ms,
+               "bound_by": b_by, "old_max_rel_err": errs[0], "new_max_rel_err": errs[1],
+               **in_turns(lambda: call_linearize(fns[0], args, Nt),
+                          lambda: call_linearize(fns[1], args, Nt), 20, device)}
 
 
 def condensed_results(old, device, only):

@@ -12,7 +12,11 @@ atol 5e-5 and y atol 5e-4 (`tests/test_lanes.py:61-64`); allocation u atol
 2e-3 N (`tests/test_lanes_alloc.py:75-78`); a whole control step u_phys
 atol 2e-2 N (`tests/test_lanes.py:174-178`); the Riccati sweeps atol 2e-5 on
 O(1) data (`tests/test_stagewise.py:399-401`), over 240 stages too because
-the closed loop contracts.
+the closed loop contracts.  The linearization kernel against the plain
+vmap(jacfwd) in the same dtype: float64 rtol 1e-12 (float64 rounding of
+one RK4 step and its tangents), float32 rtol 1e-5 (the same few hundred
+roundings of 6e-8, taken in another order and with fused multiply-adds),
+each of the scale of A, of B and, for the defects, of the states.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 
 from ft_mpc_torch.controllers import spiraling as sp
 from ft_mpc_torch.geometry.scenario import load_bank_snapshot, take_rows, tile_bank
+from ft_mpc_torch.ops import linearize as lin
 from ft_mpc_torch.ops.dynamics import BodyParams, robot_step
 from ft_mpc_torch.solvers import lanes_alloc as la
 from ft_mpc_torch.solvers import lanes_condense as lc
@@ -79,6 +84,60 @@ def test_condense_kernel_matches_plain(dev, gen, B, Nt):
     np.testing.assert_allclose(np_(phi), np_(phi_ref), rtol=1e-5, atol=1e-6)
     with pytest.raises(ValueError):
         lc._condense_cuda(args[0].double(), args[1], args[2])
+
+
+def linearize_case(gen, B, Nt, dtype, device, per_row=False):
+    """(params, bank, X, U, u_ref) on B rows of the bench bank: states
+    of +-0.3 about hover with unit quaternions, inputs of +-0.5 N, a
+    reference one stage longer than the horizon; `per_row` gives each row
+    its own mass, inertia and dt (a randomized bank's plant)."""
+    bank = tile_bank(load_bank_snapshot(device=device, dtype=dtype), -(-B // 32))
+    bank = take_rows(bank, torch.arange(B, device=device))
+    params = BodyParams.default(0.1, dtype=dtype, device=device)
+    c = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    if per_row:
+        I = np.stack([np.diag([0.2, 0.3, 0.25] * gen.uniform(0.8, 1.2, 3)) for _ in range(B)])
+        params = params._replace(mass=c(16.8 * gen.uniform(0.85, 1.15, B)), inertia=c(I),
+                                 inertia_inv=c(np.linalg.inv(I)),
+                                 dt=c(gen.uniform(0.08, 0.12, B)))
+    q = gen.standard_normal((B, Nt + 1, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    X = np.concatenate([0.3 * gen.standard_normal((B, Nt + 1, 9)), q], axis=-1)
+    return (params, bank, c(X), c(0.5 * gen.standard_normal((B, Nt, 6))),
+            c(gen.standard_normal((Nt + 1, 6))))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, F32], ids=["float64", "float32"])
+@pytest.mark.parametrize("B,Nt,per_row", [
+    (2048, 15, False),  # the condensed cell
+    (256, 15, False),   # its cleanup's K = B/8
+    (512, 240, False),  # the stagewise cell
+    (64, 240, False),   # its cleanup's K
+    (17, 15, False),    # the census's cleanup (B=137): a partly filled last block
+    (1, 15, False),
+    (1, 240, False),
+    (64, 15, True),     # per-row mass, inertia and dt
+    (3, 240, True),
+])
+def test_linearize_kernel_matches_plain(dev, gen, B, Nt, per_row, dtype):
+    """One warp a stage, eight stages a block, in the caller's dtype:
+    A, B and the defects against vmap(jacfwd) on the same card, contiguous,
+    one launch a call and no plain call."""
+    args = linearize_case(gen, B, Nt, dtype, dev, per_row)
+    n0, p0 = lin.linearize_lanes.launches, lin.linearize_lanes.plain_calls
+    out = lin.linearize_lanes(*args, Nt)
+    torch.cuda.synchronize()
+    assert lin.linearize_lanes.launches == n0 + 1
+    assert lin.linearize_lanes.plain_calls == p0
+    ref = lin.linearize_plain(*args, Nt)
+    rtol = 1e-12 if dtype == torch.float64 else 1e-5
+    # a defect is the difference of two states: its rounding scales with theirs
+    scales = (ref[0].abs().max(), ref[1].abs().max(), args[2].abs().max())
+    for o, r, s, shape in zip(out, ref, scales,
+                              [(B, Nt, 13, 13), (B, Nt, 13, 6), (B, Nt, 13)]):
+        assert o.dtype == dtype and tuple(o.shape) == shape and o.is_contiguous()
+        assert torch.isfinite(o).all()
+        np.testing.assert_allclose(np_(o), np_(r), rtol=0, atol=rtol * float(s))
 
 
 def admm_case(gen, T, device, B=260, Nt=15, F=32, masked=False):

@@ -165,3 +165,110 @@ def test_linearize_float32_stays_float32(rng):
         assert a.dtype == torch.float32
         # float32 rounding of an RK4 step and its jacobian
         np.testing.assert_allclose(np_(a), np_(b), rtol=1e-4, atol=1e-5)
+
+
+def _lin_case(rng, B=3, Nt=5, batched_plant=False):
+    """(params, bank, X, U, u_ref) of B bench rows in float64 on the CPU."""
+    flat = load_flat(list(range(B)))
+    _, tp = _params_pair()
+    if batched_plant:
+        m = 16.8 * rng.uniform(0.85, 1.15, B)
+        I = np.stack([np.diag(np.diag(np_(tp.inertia)) * rng.uniform(0.8, 1.2, 3))
+                      for _ in range(B)])
+        tp = tp._replace(mass=t64(m), inertia=t64(I), inertia_inv=t64(np.linalg.inv(I)),
+                         dt=t64(np.full(B, 0.1)))
+    X = np.concatenate(
+        [rng.standard_normal((B, Nt + 1, 9)) * 0.3,
+         np.stack([_quats(rng, Nt + 1) for _ in range(B)])], axis=2,
+    )
+    U = rng.standard_normal((B, Nt, 6)) * 0.5
+    u_ref = rng.standard_normal((Nt + 2, 6))
+    return tp, torch_bank(flat), t64(X), t64(U), t64(u_ref)
+
+
+def test_linearize_lanes_runs_plain_on_cpu(rng):
+    """CPU tensors take `linearize_plain` and count a plain call, no launch."""
+    from ft_mpc_torch.ops import linearize as lin
+
+    args = _lin_case(rng)
+    n_launch, n_plain = lin.linearize_lanes.launches, lin.linearize_lanes.plain_calls
+    out = lin.linearize_lanes(*args, 5)
+    assert lin.linearize_lanes.plain_calls == n_plain + 1
+    assert lin.linearize_lanes.launches == n_launch
+    ref = lin.linearize_plain(*args, 5)
+    for a, b in zip(out, ref):
+        assert a.is_contiguous() and a.dtype == torch.float64
+        assert torch.equal(a, b)
+
+
+def _bad_inputs(case, params, bank, X, U, u_ref):
+    """The inputs with one of them made wrong as `case` says."""
+    if case == "X_stages":
+        X = X[:, :-1]
+    elif case == "X_width":
+        X = torch.cat([X, X[..., :1]], dim=-1)
+    elif case == "U_rows":
+        U = U[:-1]
+    elif case == "u_ref_short":
+        u_ref = u_ref[:3]
+    elif case == "mass_rows":
+        params = params._replace(mass=params.mass.new_full((X.shape[0] + 1,), 16.8))
+    elif case == "inertia_shape":
+        params = params._replace(inertia=params.inertia[:2])
+    elif case == "bank_shared":
+        bank = bank._replace(r=bank.r[0])
+    elif case == "X_strided":
+        X = X.transpose(0, 1).contiguous().transpose(0, 1)
+    elif case == "U_strided":
+        U = torch.cat([U, U], dim=-1)[..., :6]
+    elif case == "inertia_strided":
+        params = params._replace(inertia=params.inertia.t())
+    elif case == "u_comp_strided":
+        bank = bank._replace(u_comp=torch.cat([bank.u_comp, bank.u_comp], 1)[:, ::2])
+    elif case == "dtype":
+        U = U.float()
+    return params, bank, X, U, u_ref
+
+
+@pytest.mark.parametrize("case", [
+    "X_stages", "X_width", "U_rows", "u_ref_short", "mass_rows", "inertia_shape",
+    "bank_shared", "X_strided", "U_strided", "inertia_strided", "u_comp_strided", "dtype",
+])
+def test_linearize_lanes_refuses_bad_inputs(rng, case):
+    """The wrapper checks every input before either path runs."""
+    from ft_mpc_torch.ops import linearize as lin
+
+    args = _bad_inputs(case, *_lin_case(rng))
+    n_plain = lin.linearize_lanes.plain_calls
+    with pytest.raises(ValueError, match="linearize_lanes"):
+        lin.linearize_lanes(*args, 5)
+    assert lin.linearize_lanes.plain_calls == n_plain
+
+
+def test_linearize_lanes_shared_and_row_params(rng):
+    """A shared plant, the same plant given per row, and the gathered form
+    (jacfwd of one stage at a time, each with its row's leaves) agree."""
+    from ft_mpc_torch.ops import linearize as lin
+
+    params, bank, X, U, u_ref = _lin_case(rng, B=3, Nt=4)
+    B, Nt = 3, 4
+    per_row = tdyn.BodyParams(
+        mass=params.mass.expand(B).contiguous(),
+        inertia=params.inertia.expand(B, 3, 3).contiguous(),
+        inertia_inv=params.inertia_inv.expand(B, 3, 3).contiguous(),
+        max_thrust=params.max_thrust, D=params.D, dt=params.dt.expand(B).contiguous(),
+    )
+    shared = lin.linearize_lanes(params, bank, X, U, u_ref, Nt)
+    rowwise = lin.linearize_lanes(per_row, bank, X, U, u_ref, Nt)
+    for a, b in zip(shared, rowwise):
+        np.testing.assert_allclose(np_(a), np_(b), rtol=0, atol=1e-15)
+    for b in range(B):
+        p_b = lin.params_row(per_row, lin.params_batch_axes(per_row), b)
+        sd = lin.StageData(bank.faulty_force_gen[b], bank.r[b], bank.u_comp[b])
+        for t in range(Nt):
+            f = lambda x, u: lin.stage_dynamics(p_b, sd, x, u, u_ref[t])
+            A_bt, B_bt = torch.func.jacfwd(f, argnums=(0, 1))(X[b, t], U[b, t])
+            np.testing.assert_allclose(np_(rowwise[0][b, t]), np_(A_bt), **TOL)
+            np.testing.assert_allclose(np_(rowwise[1][b, t]), np_(B_bt), **TOL)
+            np.testing.assert_allclose(np_(rowwise[2][b, t]),
+                                       np_(f(X[b, t], U[b, t]) - X[b, t + 1]), **TOL)

@@ -28,6 +28,8 @@ seed, the first warm start, the warm-up periods), then:
    `ft_mpc.step` that no nested span covers, and the largest gap, in one
    period, between the sum of its self times and the host time of its root
    spans (`ft_mpc.step` and `ft_mpc.shift`).
+5. The linearization's launches and plain calls
+   (`ops.linearize.linearize_lanes`) a period over all the blocks.
 
 Prints one JSON line.
 """
@@ -166,6 +168,7 @@ def check(workload: str, seed: int, blocks: int, periods: int, device) -> dict:
     without the census's sync reports and the profiler's device activity)."""
     import torch
 
+    from ft_mpc_torch.ops.linearize import linearize_lanes
     from ft_mpc_torch.utils import logging as L
     from perfbench import cell as cells, plant, run as bench, system
 
@@ -184,6 +187,7 @@ def check(workload: str, seed: int, blocks: int, periods: int, device) -> dict:
     out = {"workload": workload, "seed": seed, "card": bench.card_line() if cuda else None,
            "census": census(loop, rec, cuda, sync), "alignment": alignment(loop, rec, cuda, sync)}
     timed, on_periods = [], []
+    lin0 = (linearize_lanes.launches, linearize_lanes.plain_calls)
     for b in range(blocks):
         on = b % 4 in (0, 3)
         L.enable(on)
@@ -196,6 +200,9 @@ def check(workload: str, seed: int, blocks: int, periods: int, device) -> dict:
         if on:
             on_periods += rec.periods()[-periods:]
     L.enable(True)
+    n = blocks * periods
+    out["linearize_a_period"] = {"launches": (linearize_lanes.launches - lin0[0]) / n,
+                                 "plain_calls": (linearize_lanes.plain_calls - lin0[1]) / n}
     on_ms = [b["step_ms"] for b in timed if b["recorder"]]
     off_ms = [b["step_ms"] for b in timed if not b["recorder"]]
     out["readings"] = {**readings(on_periods), "step_ms": statistics.mean(on_ms)}
