@@ -22,7 +22,11 @@ The first period starts from the reference's own warm start; a later one
 follows the program's warm start as it entered that period (its duals, rho
 and metric inverse are the program's state), and that carry is checked by
 itself: the warm start the period received is the previous period's,
-shifted one stage (limit 0).
+shifted one stage (limit 0).  Where the program carries the duals of
+another number of dense rows than the configuration's QP has (terminal
+rows, then its state box's and wrench rate's rows), it has dropped or added
+a bound; the reference cannot follow that state, and the period's gaps read
+inf.
 """
 
 from __future__ import annotations
@@ -35,6 +39,8 @@ import numpy as np
 import torch
 
 from perfbench import reference as ref
+
+GAPS = tuple(f"{n}_gap_{k}" for n in ("u", "U") for k in ("p50", "pattern_max", "cleanup_p50"))
 
 
 class Guarantees:
@@ -138,9 +144,19 @@ class Reference:
                                    config["terminal"]["tuning"], root / config["terminal"]["cache_dir"],
                                    pad["hull_facets"], pad["terminal_rows"], device, dtype)
         self.pl = ref.plant_tensors(plant, device, dtype)
-        t = lambda v: torch.diag(torch.as_tensor(v, dtype=dtype, device=device))
-        self.W = SimpleNamespace(Q=t(config["weights"]["Q"]), R=t(config["weights"]["R"]))
+        bounds = cells.weight_bounds(config)
+        if config["mpc"]["qp_backend"] == "stagewise":
+            for k, v in bounds.items():
+                if v is not None:
+                    raise ValueError(f"weights: {k} on the stagewise backend; the reference "
+                                     "builds the state box and the rate rows on the condensed "
+                                     "backend only")
+        t = lambda v: None if v is None else torch.as_tensor(v, dtype=dtype, device=device)
+        self.W = SimpleNamespace(Q=torch.diag(t(config["weights"]["Q"])),
+                                 R=torch.diag(t(config["weights"]["R"])),
+                                 **{k: t(v) for k, v in bounds.items()})
         self.cfg = cells.reference_cfg(config, self.B)
+        self.dense_rows = pad["terminal_rows"] + ref.n_extra(self.W, self.cfg.horizon)
 
     def step(self, s, x_ref, u_ref):
         """The reference's control step for snapshot s, from its own first
@@ -161,8 +177,11 @@ def compare(samples, reference, x_ref_full, u_ref_full, horizon) -> dict:
     worst = {"carry_gap": 0.0}
     for s in samples:
         win = slice(s.start, s.start + horizon + 1)
-        r = reference.step(s, x_ref_full[win], u_ref_full[win])
-        got = judge(s.u, s.U, r, reference.rows)
+        if s.warm_in is not None and s.warm_in.y_term.shape[1] != reference.dense_rows:
+            got = dict.fromkeys(GAPS, math.inf)
+        else:
+            r = reference.step(s, x_ref_full[win], u_ref_full[win])
+            got = judge(s.u, s.U, r, reference.rows)
         if s.warm_in is not None:
             got["carry_gap"] = carry_gap(s)
         for k, v in got.items():

@@ -6,12 +6,20 @@ The work is counted from the problem's shapes and the configured budget,
 not from what implements it: per period, sqp_iters x phases solves of
 `iters` iterations on the bank's B rows and cleanup_phases solves of
 cleanup_iters iterations on its K rows.  A solve reads K^-1 (n x n), the
-hull (F x 6) and its offsets (Nt x F), the terminal rows (T x n) and
-offsets (T), g, the start x, z and y and rho, and writes x, z and y, each
-once, float32.  Operations: a frozen copy of `chip_smoke.py:admm_flops`.
+hull (F x 6) and its offsets (Nt x F), the dense rows (T x n) and offsets
+(T), g, the start x, z and y and rho, and writes x, z and y, each once,
+float32.  Operations: a frozen copy of `chip_smoke.py:admm_flops`.
+
+The dense rows are the padded terminal rows and, after them, the rows of
+the configuration's bounds (`cell.extra_rows`, as the program's
+`n_extra_rows` counts them): 2 x 13 x (Nt - 1) for a state box, one-sided
+or not, and 2 x 6 x (Nt - 1) for a wrench-rate bound.  At Nt=15 with both,
+T = 64 + 364 + 168 = 596.  No other reader's work depends on T: condensing
+reads the stages' A, B and defects and writes S and phi, the allocation
+reads the hull and the generators.
 """
 
-from perfbench import peaks, trace
+from perfbench import cell, peaks, trace
 
 N_U = 6
 
@@ -33,7 +41,8 @@ def admm_bytes(B, Nt, F, T):
 
 def work_s(run):
     m = run.config["mpc"]
-    Nt, F, T = m["horizon"], run.config["padding"]["hull_facets"], run.config["padding"]["terminal_rows"]
+    Nt, F = m["horizon"], run.config["padding"]["hull_facets"]
+    T = run.config["padding"]["terminal_rows"] + cell.extra_rows(run.config)
     calls = [(run.B, m["admm"]["iters"])] * (m["sqp_iters"] * m["admm"]["phases"])
     if m["cleanup_iters"] > 0:
         calls += [(run.K, m["cleanup_iters"])] * (m["cleanup_phases"] * m["cleanup_rounds"])

@@ -7,6 +7,8 @@ fault wrench (6 each), the bounds (16), the hull (F x 6, F), the generators
 (6 x 16, 6), the step and the thrust bound; write u (16), the allocated
 wrench (6) and 3 flags; float32, each once.  Operations: a frozen copy of
 `chip_smoke.py:alloc_flops` at the configured FISTA and ADMM iterations.
+The work does not depend on the QP's dense rows (terminal, state box,
+wrench rate).
 """
 
 from perfbench import peaks, trace

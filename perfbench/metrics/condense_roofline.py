@@ -7,6 +7,8 @@ count): read the stage A (13 x 13), B (13 x 6) and defects (13), write S
 (13 x n at every stage) and phi (13), float32, each once; operations of the
 recursion, 13 x 13 @ 13 x n a stage for S and 13 x 13 for phi.  Per period:
 sqp_iters calls on the bank's B rows and cleanup_rounds calls on its K rows.
+The work does not depend on the dense rows that follow (terminal, state box,
+wrench rate): those are the ADMM's.
 """
 
 from perfbench import peaks, trace

@@ -9,7 +9,9 @@ cheaper or different:
     (from `ft_mpc_torch/sim/env.py`);
   * `tumbling_x0` and `at_rest_x0`: `bench.py:113-120`'s and
     `benchmarks/long_horizon.py:97-100`'s draws, from the run's seed
-    (from `ft_mpc_torch/benchmarks/common.py`);
+    (from `ft_mpc_torch/benchmarks/common.py`); `near_orbit_x0`: the
+    sanitizer's draw (`ft_mpc_torch/benchmarks/sanitizer.py:x0_states`),
+    from the run's seed and with its ranges as parameters;
   * `hover_refs`: the hover reference about the orbit rate, rows
     [pos, vel, omega_des] and a zero nominal wrench (what
     `generate_trajectory("hover")` and `prepare_center_trajectory` give).
@@ -131,7 +133,19 @@ def at_rest_x0(B: int, seed: int, pos: float) -> np.ndarray:
     return x0
 
 
-INITIAL_STATES = {"tumbling": tumbling_x0, "at_rest": at_rest_x0}
+def near_orbit_x0(B: int, seed: int, pos: float, vel: float, omega: float) -> np.ndarray:
+    """The sanitizer's states from `seed`: uniform positions, velocities and
+    rates, identity attitude; float32 (B, 13)."""
+    rng = np.random.default_rng(seed)
+    x0 = np.zeros((B, N_X), dtype=np.float32)
+    x0[:, 0:3] = rng.uniform(-pos, pos, (B, 3))
+    x0[:, 3:6] = rng.uniform(-vel, vel, (B, 3))
+    x0[:, 6:10] = [0, 0, 0, 1]
+    x0[:, 10:13] = rng.uniform(-omega, omega, (B, 3))
+    return x0
+
+
+INITIAL_STATES = {"tumbling": tumbling_x0, "at_rest": at_rest_x0, "near_orbit": near_orbit_x0}
 
 
 def initial_states(spec: dict, B: int, seed: int) -> np.ndarray:

@@ -8,7 +8,9 @@ one bank-wide control step as the configuration defines it:
   * the RK4 orbit-centre dynamics linearized along the warm trajectory
     (`torch.func` forward-mode jacobians);
   * condensed backend: the prediction matrices by the plain recursion, the
-    dense QP with the polynomial terminal cost and the elastic terminal set,
+    dense QP with the polynomial terminal cost and the elastic terminal set
+    (and after it, where the configuration states them, the state box's and
+    the wrench rate's rows),
     the inverse ADMM metric by Newton-Schulz from the carried one (the
     whole bank refactored exactly when any row's spectral test fails), the
     over-relaxed ADMM with the rho rule, a 3-candidate merit line search;
@@ -315,12 +317,52 @@ def stage_offset(bank, X, U, u_ref):
     return U + u_r + bank.u_comp[:, None] + bank.ffg[:, None]
 
 
+def has_box(W) -> bool:
+    return W.x_lb is not None or W.x_ub is not None
+
+
+def n_extra(W, Nt: int) -> int:
+    """The rows that `ext_rows` adds."""
+    return 2 * (Nt - 1) * (N_X * has_box(W) + N_U * (W.du_max is not None))
+
+
+def box(W, like):
+    """The state box's two sides; a side the configuration leaves out is at
+    BIG, so that a one-sided box still builds both sides' rows."""
+    big = torch.full((N_X,), BIG, dtype=like.dtype, device=like.device)
+    return (-big if W.x_lb is None else W.x_lb), (big if W.x_ub is None else W.x_ub)
+
+
+def ext_rows(W, X, S, phi, offset):
+    """The rows that follow the terminal rows, (G (B, E, n), h (B, E)),
+    unrelaxed: the state box on every state of stages 1..Nt-1,
+    +/- S_t dU <= +/-(bound - X_t - phi_t), then the wrench rate,
+    +/-(dU_t - dU_{t-1}) <= du_max -/+ (offset_t - offset_{t-1})."""
+    B, Nt, _, n = S.shape
+    G, h = [], []
+    if has_box(W):
+        lb, ub = box(W, X)
+        Sb = S[:, :-1].reshape(B, (Nt - 1) * N_X, n)
+        x = X[:, 1:-1] + phi[:, :-1]
+        G += [Sb, -Sb]
+        h += [(ub - x).reshape(B, -1), (x - lb).reshape(B, -1)]
+    if W.du_max is not None:
+        eye = torch.eye(n, dtype=X.dtype, device=X.device)
+        diff = (eye[N_U:] - eye[:-N_U]).expand(B, n - N_U, n)  # row (t, j): dU_{t+1,j} - dU_{t,j}
+        dw = (offset[:, 1:] - offset[:, :-1]).reshape(B, -1)
+        dmax = W.du_max.repeat(Nt - 1)
+        G += [diff, -diff]
+        h += [dmax - dw, dmax + dw]
+    return torch.cat(G, 1), torch.cat(h, 1)
+
+
 def assemble_condensed(pl, bank, W, cfg, X, U, x_ref, u_ref, geo):
     hA, hb, tA, tb = geo
     B, Nt = U.shape[:2]
     n = Nt * N_U
     A, Bm, d = linearize(pl, bank, X, U, u_ref)
-    h_hull = hb[:, None] - torch.einsum("bti,bfi->btf", stage_offset(bank, X, U, u_ref), hA)
+    offset = stage_offset(bank, X, U, u_ref)
+    h_hull = hb[:, None] - torch.einsum("bti,bfi->btf", offset, hA)
     S, phi = condense(A, Bm, d)
     S9 = S[:, :, :N_OPT]
     e0 = X[:, 1:, :N_OPT] + phi[:, :, :N_OPT] - x_ref[:, 1:]
@@ -334,6 +376,9 @@ def assemble_condensed(pl, bank, W, cfg, X, U, x_ref, u_ref, geo):
                + U.reshape(B, -1) @ R_blk) + torch.einsum("bin,bi->bn", S9[:, -1], gV)
     G_term = torch.einsum("bti,bin->btn", tA, S9[:, -1])
     h_term = tb - torch.einsum("bti,bi->bt", tA, e0[:, -1])
+    if n_extra(W, Nt) > 0:
+        G_ext, h_ext = ext_rows(W, X, S, phi, offset)
+        G_term, h_term = torch.cat([G_term, G_ext], 1), torch.cat([h_term, h_ext], 1)
     h_term = torch.maximum(h_term, cfg.term_relax * h_term)
     qp = SimpleNamespace(H=H, g=g, hull_A=hA, h_hull=h_hull, G_term=G_term, h_term=h_term)
     return qp, S, phi, d
@@ -488,6 +533,14 @@ def merit_alpha(pl, bank, W, cfg, X, U, dX, dU, x_ref, u_ref, geo):
     viol = ((fc - Xc[:, :, 1:]).abs().sum((2, 3))
             + torch.clamp(torch.einsum("abti,bfi->abtf", w, hA) - hb[:, None], min=0).sum((2, 3))
             + torch.clamp(torch.einsum("bti,abi->abt", tA, e_N) - tb, min=0).sum(2))
+    if has_box(W):
+        lb, ub = box(W, X)
+        xs = Xc[:, :, 1:-1]
+        viol = viol + torch.clamp(xs - ub, min=0).sum((2, 3))
+        viol = viol + torch.clamp(lb - xs, min=0).sum((2, 3))
+    if W.du_max is not None:
+        dw = w[:, :, 1:] - w[:, :, :-1]
+        viol = viol + torch.clamp(dw.abs() - W.du_max, min=0).sum((2, 3))
     m = J + cfg.ls_penalty * viol
     m = torch.where(torch.isfinite(m), m, torch.inf)
     return al[torch.argmin(m, dim=0)]
@@ -811,7 +864,7 @@ def init_warm(pl, bank, W, cfg, c0, x_ref, u_ref):
         Xs.append(x)
     warm = SimpleNamespace(X=torch.stack(Xs, 1), U=torch.zeros(B, Nt, N_U, **kw),
                            y_hull=torch.zeros(B, Nt, bank.hull_A.shape[1], **kw),
-                           y_term=torch.zeros(B, bank.term_A.shape[1], **kw),
+                           y_term=torch.zeros(B, bank.term_A.shape[1] + n_extra(W, Nt), **kw),
                            rho=torch.full((B,), cfg.admm.rho, **kw), kinv=None)
     if cfg.qp_backend == "condensed":
         qp, _, _, _ = assemble_condensed(pl, bank, W, cfg, warm.X, warm.U,

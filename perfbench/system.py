@@ -2,7 +2,8 @@
 
 The harness hands the program only what it would get in flight: the bank it
 builds from the fault patterns (`api.build_scenario_with_terminal` with the
-committed terminal cache), the weights, an `MPCConfig` whose every field
+committed terminal cache), the weights with the configuration's state box
+and wrench-rate bound where it states them, an `MPCConfig` whose every field
 comes from the configuration's file, the states and the reference windows.
 A period is `get_control_batch`; between periods the harness shifts the
 warm start with the program's `shift_warmstart`, as the program's own
@@ -75,7 +76,8 @@ def build(config: dict, traffic: dict, device):
     w = config["weights"]
     return SimpleNamespace(
         bank=bank, params=plant(config, device),
-        weights=MPCWeights.from_diagonals(w["Q"], w["R"], dtype=torch.float32, device=device),
+        weights=MPCWeights.from_diagonals(w["Q"], w["R"], **cells.weight_bounds(config),
+                                          dtype=torch.float32, device=device),
         cfg=mpc_config(config, B))
 
 
