@@ -339,10 +339,11 @@ def _assemble_condensed_batch(params, bank, weights, cfg, X, U, x_ref, u_ref,
     h_term = torch.maximum(h_term, cfg.term_relax * h_term)
 
     if n_extra_rows(weights, Nt) > 0:
-        G_ext, h_ext = _ext_rows(weights, X, S_all, phi_all, stage_offset)
-        h_ext = torch.maximum(h_ext, cfg.term_relax * h_ext)
-        G_term = torch.cat([G_term, G_ext], dim=1)
-        h_term = torch.cat([h_term, h_ext], dim=1)
+        with span("ft_mpc.ext_rows"):
+            G_ext, h_ext = _ext_rows(weights, X, S_all, phi_all, stage_offset)
+            h_ext = torch.maximum(h_ext, cfg.term_relax * h_ext)
+            G_term = torch.cat([G_term, G_ext], dim=1)
+            h_term = torch.cat([h_term, h_ext], dim=1)
 
     qp = StructuredMPCQP(H=H, g=g, hull_A=hull_A, h_hull=h_hull,
                          G_term=G_term, h_term=h_term)
@@ -463,14 +464,17 @@ def _merit_alpha(params, bank, weights, cfg, X, U, dX, dU, x_ref, u_ref,
             torch.einsum("bti,abi->abt", term_A, e_N_c) - term_b, min=0.0
         ).sum(dim=2)
     )
-    if weights.has_state_box:
-        xlb, xub = _box_bounds(weights, dtype, dev)
-        xs = Xc[:, :, 1:-1]
-        viol = viol + torch.clamp(xs - xub, min=0.0).sum(dim=(2, 3))
-        viol = viol + torch.clamp(xlb - xs, min=0.0).sum(dim=(2, 3))
-    if weights.du_max is not None:
-        dw = w_tot[:, :, 1:] - w_tot[:, :, :-1]
-        viol = viol + torch.clamp(torch.abs(dw) - weights.du_max, min=0.0).sum(dim=(2, 3))
+    if n_extra_rows(weights, Nt) > 0:
+        with span("ft_mpc.ext_rows"):
+            if weights.has_state_box:
+                xlb, xub = _box_bounds(weights, dtype, dev)
+                xs = Xc[:, :, 1:-1]
+                viol = viol + torch.clamp(xs - xub, min=0.0).sum(dim=(2, 3))
+                viol = viol + torch.clamp(xlb - xs, min=0.0).sum(dim=(2, 3))
+            if weights.du_max is not None:
+                dw = w_tot[:, :, 1:] - w_tot[:, :, :-1]
+                viol = viol + torch.clamp(torch.abs(dw) - weights.du_max,
+                                          min=0.0).sum(dim=(2, 3))
     merits = J + cfg.ls_penalty * viol  # (nA, B)
     # a non-finite candidate must never win over alpha = 0
     merits = torch.where(torch.isfinite(merits), merits, torch.inf)

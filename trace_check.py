@@ -29,7 +29,12 @@ seed, the first warm start, the warm-up periods), then:
    period, between the sum of its self times and the host time of its root
    spans (`ft_mpc.step` and `ft_mpc.shift`).
 5. The linearization's launches and plain calls
-   (`ops.linearize.linearize_lanes`) a period over all the blocks.
+   (`ops.linearize.linearize_lanes`), and the ADMM kernel's launches by
+   design (`solvers.lanes_qp.admm_lanes.launches_by_design`), a period over
+   all the blocks.
+6. Where the configuration has bounds (a state box, a wrench-rate bound),
+   the count and self ms a period of `ft_mpc.ext_rows` (their dense rows'
+   assembly and line-search terms) over the "on" blocks' periods.
 
 Prints one JSON line.
 """
@@ -169,6 +174,7 @@ def check(workload: str, seed: int, blocks: int, periods: int, device) -> dict:
     import torch
 
     from ft_mpc_torch.ops.linearize import linearize_lanes
+    from ft_mpc_torch.solvers.lanes_qp import admm_lanes
     from ft_mpc_torch.utils import logging as L
     from perfbench import cell as cells, plant, run as bench, system
 
@@ -188,6 +194,7 @@ def check(workload: str, seed: int, blocks: int, periods: int, device) -> dict:
            "census": census(loop, rec, cuda, sync), "alignment": alignment(loop, rec, cuda, sync)}
     timed, on_periods = [], []
     lin0 = (linearize_lanes.launches, linearize_lanes.plain_calls)
+    admm0 = dict(admm_lanes.launches_by_design)
     for b in range(blocks):
         on = b % 4 in (0, 3)
         L.enable(on)
@@ -203,9 +210,16 @@ def check(workload: str, seed: int, blocks: int, periods: int, device) -> dict:
     n = blocks * periods
     out["linearize_a_period"] = {"launches": (linearize_lanes.launches - lin0[0]) / n,
                                  "plain_calls": (linearize_lanes.plain_calls - lin0[1]) / n}
+    out["admm_launches_a_period"] = {d: (k - admm0[d]) / n
+                                     for d, k in admm_lanes.launches_by_design.items()}
     on_ms = [b["step_ms"] for b in timed if b["recorder"]]
     off_ms = [b["step_ms"] for b in timed if not b["recorder"]]
     out["readings"] = {**readings(on_periods), "step_ms": statistics.mean(on_ms)}
+    if cells.extra_rows(c.config) > 0:
+        r = out["readings"]
+        out["ext_rows"] = {"rows": cells.extra_rows(c.config),
+                           "count": r["count"].get("ft_mpc.ext_rows", 0.0),
+                           "self_ms": r["self_ms"].get("ft_mpc.ext_rows", 0.0)}
     # after the readings: the empty spans land in the newest period
     out["cost"] = {"blocks": timed, "step_ms_on": statistics.median(on_ms),
                    "step_ms_off": statistics.median(off_ms), "us_a_span": span_cost_us()}
