@@ -210,6 +210,22 @@
    3 a step (two SQP iterations and the cleanup), 1 more in the condensed
    `init_warmstart_batch`, no plain call.
 
+15. Holds the terminal kernel (`ft_mpc_torch/csrc/terminal.cu`,
+   `ops.terminal.terminal_lanes`) against its plain version
+   (`terminal_plain`, vmap of grad / hessian) on the main path's own inputs:
+   the (term, e) of the first assembly (V, gradient and PSD-shifted
+   Hessian) and of the first line search (V of the 3 x B candidates) of a
+   condensed step at B=2048 and at the census's B=137, and of a stagewise
+   step at B=512; float32 within TOL_TERMINAL_F32 (V, gradient, Hessian off
+   the omega diagonal) and the omega diagonal within TOL_TERMINAL_SHIFT_F32
+   of float64 or 4 times the plain float32's distance (`terminal_gaps`),
+   float64 within TOL_TERMINAL_F64; the kernel timed alone beside its bound,
+   the wrapper's calls back to back and the plain version; then counts its
+   launches on 2 chained steps of both paths: 7 a condensed step (3
+   assemblies, 3 line searches, the trajectory's cost) and 1 more in
+   `init_warmstart_batch`, 8 a stagewise step (the cleanup's SQP adds a
+   trajectory cost), no plain call.
+
 Prints the card's name and power limit, one JSON line with every kernel's
 numbers, and as its last line {"ok": true, "device": {...}}.  Exits with a
 non-zero code and prints no result without a CUDA device, or when the
@@ -401,6 +417,18 @@ LIN_TANGENT_FLOPS = 1384
 # another order and with fused multiply-adds; float64, the same at 1.1e-16
 TOL_LINEARIZE = 1e-5
 TOL_LINEARIZE_F64 = 1e-12
+# section 15: the terminal kernel
+TERM_BATCHES = ((BATCH, 0), (137, 0), (SW_BATCH, SW_HORIZON))  # (B, stagewise horizon)
+TERM_STEPS = 2  # chained steps of each path whose terminal launches are counted
+# operations a row, about, counted from csrc/terminal.cu (an FMA two, a pow,
+# acos or cos one): the part without the tables' terms, and each K1 and K2
+# term; V alone, and V with the gradient and the shifted Hessian
+TERM_FLOPS = {False: (222, 4, 8), True: (561, 46, 64)}
+# kernel against the plain version (tests/test_torch_cuda.py): relative to
+# each output's scale; the omega diagonal against float64
+TOL_TERMINAL_F32 = 1e-6
+TOL_TERMINAL_SHIFT_F32 = 5e-5
+TOL_TERMINAL_F64 = 1e-12
 CONDENSED_KERNELS = ("condense_lanes", "admm_lanes", "allocate_thrusters_lanes")
 STAGEWISE_KERNELS = ("riccati_bwd_lanes", "riccati_fwd_lanes", "riccati_prepare_lanes",
                      "allocate_thrusters_lanes")
@@ -3342,6 +3370,155 @@ def drive_linearize(device, card: str, check) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# section 15: the terminal kernel (ft_mpc_torch/csrc/terminal.cu)
+# ---------------------------------------------------------------------------
+
+
+def terminal_inputs(device, B: int, Nt: int) -> dict:
+    """{derivs: (term, e)} of one step of the path (condensed for Nt = 0,
+    else stagewise at horizon Nt) on B rows after its warm start: the first
+    call with derivs (an assembly's, e (B, 9)) and without (the line
+    search's, e (3, B, 9)), captured as the controller makes them."""
+    from ft_mpc_torch.controllers import spiraling as sp
+
+    ctx = Ctx(device, torch.float32, B, stagewise_horizon=Nt)
+    warm = ctx.init()
+    seen, real = {}, sp.terminal_lanes
+
+    def capture(term, e, derivs=False):
+        seen.setdefault(derivs, (term, e.clone()))
+        return real(term, e, derivs=derivs)
+
+    sp.terminal_lanes = capture
+    try:
+        ctx.step(warm)
+    finally:
+        sp.terminal_lanes = real
+    sync(device)
+    return seen
+
+
+def terminal_gaps(got, ref) -> dict:
+    """Distances of the outputs (V, or V, gradient, Hessian) from the
+    reference's over each reference output's largest entry (at least 1),
+    the Hessian's omega diagonal (where the PSD shift lands) apart."""
+    got, ref = (got,) if torch.is_tensor(got) else got, (ref,) if torch.is_tensor(ref) else ref
+    gaps = {}
+    for name, g, r in zip(("V", "g", "H"), got, ref):
+        d = (g.double() - r.double()).abs()
+        s = max(1.0, float(r.abs().max()))
+        if name == "H":
+            diag = torch.zeros(9, 9, dtype=torch.bool, device=d.device)
+            diag[6:, 6:] = torch.eye(3, dtype=torch.bool, device=d.device)
+            gaps["H_diag"] = float(d[..., diag].max()) / s
+            d = d[..., ~diag]
+        gaps[name] = float(d.max()) / s
+    return gaps
+
+
+def terminal_bound(term, e, out, derivs: bool) -> tuple[float, str]:
+    """`bound_ms` of one call: e and the tables read once, the outputs
+    written once; TERM_FLOPS a row."""
+    out = (out,) if torch.is_tensor(out) else out
+    base, k1, k2 = TERM_FLOPS[derivs]
+    n = e.numel() // 9
+    flops = n * (base + k1 * term.poly_c.shape[-1] + k2 * term.sqrt_c.shape[-1])
+    return bound_ms(nbytes(e, *term, *out), flops)
+
+
+def terminal_row(device, label: str, term, e, derivs: bool) -> dict:
+    """The kernel on one captured call: held in float32 and float64, timed."""
+    from ft_mpc_torch.ops import terminal as ot
+
+    n0, p0 = ot.terminal_lanes.launches, ot.terminal_lanes.plain_calls
+    got = ot.terminal_lanes(term, e, derivs)
+    sync(device)
+    calls = (ot.terminal_lanes.launches - n0, ot.terminal_lanes.plain_calls - p0)
+    ref = ot.terminal_plain(term, e, derivs)
+    term64, e64 = tree_to(term, device, torch.float64), e.double()
+    got64 = ot.terminal_lanes(term64, e64, derivs)
+    ref64 = ot.terminal_plain(term64, e64, derivs)
+    gaps, gaps64 = terminal_gaps(got, ref), terminal_gaps(got64, ref64)
+    vs64, plain_vs64 = terminal_gaps(got, ref64), terminal_gaps(ref, ref64)
+    off = max(v for k, v in gaps.items() if k != "H_diag")
+    agrees = off <= TOL_TERMINAL_F32 and (
+        not derivs
+        or vs64["H_diag"] <= max(TOL_TERMINAL_SHIFT_F32, 4 * plain_vs64["H_diag"]))
+    b_ms, b_by = terminal_bound(term, e, got, derivs)
+    outs = (got,) if torch.is_tensor(got) else got
+    row = {
+        "name": "terminal_lanes", "route": "cuda", "source": "ft_mpc_torch/csrc/terminal.cu",
+        "replaces": "none (XLA fused jax.vmap of jax.grad / jax.hessian)",
+        "shape": f"{label} e={tuple(e.shape)} derivs={derivs}", "calls": calls,
+        "max_abs_err": max(float((g.double() - r.double()).abs().max())
+                           for g, r in zip(outs, (ref,) if torch.is_tensor(ref) else ref)),
+        "gaps": gaps, "gaps_f64": gaps64, "kernel_vs_f64": vs64, "plain_vs_f64": plain_vs64,
+        "max_rel_err": off, "tol": None, "tol_rel": TOL_TERMINAL_F32, "agrees": agrees,
+        "finite": all(bool(torch.isfinite(o).all()) for o in outs),
+        "contiguous": all(o.is_contiguous() for o in outs),
+        "ms": time_ms(lambda: ot.terminal_lanes(term, e, derivs), 20, device,
+                      device_only=True),
+        "call_ms": time_ms(lambda: ot.terminal_lanes(term, e, derivs), 20, device),
+        "plain_ms": time_ms(lambda: ot.terminal_plain(term, e, derivs), 3, device),
+        "ms_f64": time_ms(lambda: ot.terminal_lanes(term64, e64, derivs), 20, device,
+                          device_only=True),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+    return with_share(row)
+
+
+def terminal_launches(device) -> dict:
+    """Launches and plain calls of the terminal terms in `init` and in
+    TERM_STEPS chained steps of the condensed and the stagewise path."""
+    from ft_mpc_torch.ops import terminal as ot
+
+    out = {}
+    for label, B, Nt in (("condensed", BATCH, 0), ("stagewise", SW_BATCH, SW_HORIZON)):
+        ctx = Ctx(device, torch.float32, B, stagewise_horizon=Nt)
+        n0, p0 = ot.terminal_lanes.launches, ot.terminal_lanes.plain_calls
+        warm = ctx.init()
+        sync(device)
+        n_init = ot.terminal_lanes.launches - n0
+        for _ in range(TERM_STEPS):
+            warm = ctx.step(warm).warm
+        sync(device)
+        out[label] = {"init": n_init,
+                      "per_step": (ot.terminal_lanes.launches - n0 - n_init) / TERM_STEPS,
+                      "plain_calls": ot.terminal_lanes.plain_calls - p0}
+        del ctx, warm
+        torch.cuda.empty_cache()
+    return out
+
+
+def drive_terminal(device, card: str, check) -> list:
+    """Section 15 (module docstring); returns the kernel rows."""
+    rows = []
+    for B, Nt in TERM_BATCHES:
+        label = f"B={B} " + ("stagewise" if Nt else "condensed")
+        for derivs, (term, e) in sorted(terminal_inputs(device, B, Nt).items()):
+            r = terminal_row(device, label, term, e, derivs)
+            log("kernel: " + json.dumps(r))
+            check(r["calls"] == (1, 0), f"terminal_lanes at {r['shape']}: (launches, plain "
+                  f"calls) {r['calls']}, not (1, 0)")
+            check(r["agrees"] and r["finite"] and r["contiguous"],
+                  f"terminal_lanes ({r['shape']}) disagrees with its plain version: {r}")
+            check(max(r["gaps_f64"].values()) <= TOL_TERMINAL_F64,
+                  f"terminal_lanes ({r['shape']}) float64 off its plain version by "
+                  f"{r['gaps_f64']}")
+            rows.append(r)
+        torch.cuda.empty_cache()
+    counted = terminal_launches(device)
+    log(f"terminal launches: {json.dumps(counted)}; card: {card}")
+    want = {"condensed": {"init": 1, "per_step": 7, "plain_calls": 0},
+            "stagewise": {"init": 0, "per_step": 8, "plain_calls": 0}}
+    check(counted == want, f"terminal launches {counted}, not {want}")
+    for r in rows:
+        r["launches"] = counted["stagewise" if "stagewise" in r["shape"]
+                                else "condensed"]["per_step"]
+    return rows
+
+
 def drive_last_scripts(device, card: str, check) -> list:
     """Section 13; returns its two ADMM kernel rows."""
     pareto_phase(device, card, check)
@@ -3475,6 +3652,7 @@ def main(argv=None) -> int:
         (12, lambda: rows.extend(drive_census_scripts(device, card, check))),
         (13, lambda: rows.extend(drive_last_scripts(device, card, check))),
         (14, lambda: rows.extend(drive_linearize(device, card, check))),
+        (15, lambda: rows.extend(drive_terminal(device, card, check))),
     )
     for n, drive in sections:
         torch.cuda.empty_cache()

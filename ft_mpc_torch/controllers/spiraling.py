@@ -16,7 +16,10 @@ Each control step, per SQP iteration: linearize the RK4 orbit-center
 dynamics along the warm trajectory (`ops.linearize.linearize_lanes`: kernel
 `csrc/linearize.cu` over the B * Nt stages), then
   * condensed (short horizons): condense (kernel `csrc/condense.cu`),
-    assemble the dense 90-variable QP, refresh K^{-1}, run the ADMM kernel;
+    assemble the dense 90-variable QP with the terminal cost's gradient and
+    PSD-shifted Hessian (`ops.terminal.terminal_lanes`: kernel
+    `csrc/terminal.cu`, one launch for the bank), refresh K^{-1}, run the
+    ADMM kernel;
   * stagewise (long horizons, `cfg.stagewise.mode='lanes'`): assemble the
     banded QP and run the Riccati-in-ADMM solver, whose every x-update is
     the kernel pair of `csrc/riccati.cu`;
@@ -54,6 +57,7 @@ from ft_mpc_torch.ops.linearize import (
     stage_rows as _stage_rows,
 )
 from ft_mpc_torch.ops.quaternion import rot_full, rot_full_inv
+from ft_mpc_torch.ops.terminal import terminal_lanes
 from ft_mpc_torch.solvers.allocation import AllocationResult, allocate_thrusters
 from ft_mpc_torch.solvers.lanes_alloc import allocate_thrusters_lanes
 from ft_mpc_torch.solvers.lanes_condense import condense_lanes, condense_plain
@@ -69,19 +73,12 @@ from ft_mpc_torch.solvers.mpc_qp_stagewise import (
     solve_mpc_qp_stagewise,
     solve_mpc_qp_stagewise_lanes,
 )
-from ft_mpc_torch.terminal.poly import (
-    terminal_gradient,
-    terminal_hessian_psd,
-    terminal_value,
-)
 from ft_mpc_torch.utils.logging import span
 
 _BIG = 1e8
 N_X = 13
 N_U = 6
 N_OPT = 9  # states with running cost: pos, vel, omega
-
-_vmap = torch.func.vmap
 
 
 class MPCConfig(NamedTuple):
@@ -321,8 +318,7 @@ def _assemble_condensed_batch(params, bank, weights, cfg, X, U, x_ref, u_ref,
     S9_N, e0_N = S9[:, -1], e0[:, -1]
     R_blk = torch.kron(torch.eye(Nt, dtype=dtype, device=dev), weights.R)
     with span("ft_mpc.terminal"):
-        HV = _vmap(terminal_hessian_psd)(bank.term, e0_N)  # (B, 9, 9)
-        gV = _vmap(terminal_gradient)(bank.term, e0_N)  # (B, 9)
+        _, gV, HV = terminal_lanes(bank.term, e0_N.contiguous(), derivs=True)
     H = 2.0 * (
         torch.einsum("btin,ij,btjm->bnm", S9_run, weights.Q, S9_run)
         + 0.5 * torch.einsum("bin,bij,bjm->bnm", S9_N, HV, S9_N)
@@ -385,8 +381,7 @@ def _assemble_stagewise(params, bank, weights, cfg, X, U, x_ref, u_ref,
     # terminal: half-gradient / half-Hessian of the polynomial V_f (so that
     # 2 gxN = dV/de; a quadratic V_f gives P e + p/2 and P)
     with span("ft_mpc.terminal"):
-        gV = _vmap(terminal_gradient)(bank.term, e_bar[:, -1])  # (B, 9)
-        HV = _vmap(terminal_hessian_psd)(bank.term, e_bar[:, -1])  # (B, 9, 9)
+        _, gV, HV = terminal_lanes(bank.term, e_bar[:, -1].contiguous(), derivs=True)
     gx = pad13(torch.cat([e_bar[:, :-1] @ weights.Q, 0.5 * gV[:, None]], dim=1))
     QN13 = torch.nn.functional.pad(0.5 * HV, (0, N_X - N_OPT, 0, N_X - N_OPT))
     T13 = pad13(term_A)
@@ -451,7 +446,7 @@ def _merit_alpha(params, bank, weights, cfg, X, U, dX, dU, x_ref, u_ref,
     J = (
         torch.einsum("abti,ij,abtj->ab", e_run_c, weights.Q, e_run_c)
         + torch.einsum("abti,ij,abtj->ab", Uc, weights.R, Uc)
-        + _vmap(_vmap(terminal_value), in_dims=(None, 0))(bank.term, e_N_c)
+        + terminal_lanes(bank.term, e_N_c)
     )
     u_r_c = _matvec(rot_full_inv(Xc[:, :, :-1, 9:13]), u_ref[:Nt])
     w_tot = Uc + u_r_c + bank.u_comp[:, None] + bank.faulty_force_gen[:, None]
@@ -495,7 +490,7 @@ def _trajectory_cost(bank: Scenario, weights: MPCWeights, X, U, x_ref):
     return (
         torch.einsum("bti,ij,btj->b", e_run, weights.Q, e_run)
         + torch.einsum("bti,ij,btj->b", U, weights.R, U)
-        + _vmap(terminal_value)(bank.term, e_N)
+        + terminal_lanes(bank.term, e_N)
     )
 
 

@@ -22,7 +22,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build"
-SOURCES = ("condense", "admm", "alloc", "riccati", "linearize")
+SOURCES = ("condense", "admm", "alloc", "riccati", "linearize", "terminal")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -16,7 +16,14 @@ the closed loop contracts.  The linearization kernel against the plain
 vmap(jacfwd) in the same dtype: float64 rtol 1e-12 (float64 rounding of
 one RK4 step and its tangents), float32 rtol 1e-5 (the same few hundred
 roundings of 6e-8, taken in another order and with fused multiply-adds),
-each of the scale of A, of B and, for the defects, of the states.
+each of the scale of A, of B and, for the defects, of the states.  The
+terminal kernel against `terminal_plain` in the same dtype: float64 1e-12 of
+each output's scale; float32 1e-6 (V, the gradient, and the Hessian off the
+omega block's diagonal) and 5e-5 of H's scale on that diagonal, where the
+PSD shift lands: `_eigmin_sym3`'s arccos amplifies float32 rounding by
+1 / sqrt(1 - r^2) where two eigenvalues nearly meet at the scale of the
+block (the plain float32 version reads 1e-5 of that scale from float64 on
+the same inputs).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from ft_mpc_torch.controllers import spiraling as sp
 from ft_mpc_torch.geometry.scenario import load_bank_snapshot, take_rows, tile_bank
 from ft_mpc_torch.ops import linearize as lin
 from ft_mpc_torch.ops.dynamics import BodyParams, robot_step
+from ft_mpc_torch.ops import terminal as ot
 from ft_mpc_torch.solvers import lanes_alloc as la
 from ft_mpc_torch.solvers import lanes_condense as lc
 from ft_mpc_torch.solvers import lanes_qp as lq
@@ -36,6 +44,7 @@ from ft_mpc_torch.solvers import lanes_riccati as lr
 from ft_mpc_torch.solvers import riccati as rc
 from ft_mpc_torch.solvers.mpc_qp import StructuredADMMConfig, StructuredMPCQP
 from ft_mpc_torch.solvers.mpc_qp_stagewise import StagewiseConfig
+from ft_mpc_torch.terminal import poly as tpoly
 from ft_mpc_torch.utils.trajectory import generate_trajectory, prepare_center_trajectory
 
 torch.set_num_threads(1)
@@ -138,6 +147,153 @@ def test_linearize_kernel_matches_plain(dev, gen, B, Nt, per_row, dtype):
         assert o.dtype == dtype and tuple(o.shape) == shape and o.is_contiguous()
         assert torch.isfinite(o).all()
         np.testing.assert_allclose(np_(o), np_(r), rtol=0, atol=rtol * float(s))
+
+
+TOL_TERMINAL_F64 = 1e-12
+TOL_TERMINAL_F32 = 1e-6
+TOL_TERMINAL_SHIFT_F32 = 5e-5
+
+
+def terminal_case(gen, B, dtype, device, lead=(), K=None, zero_rows=0, omega=0.1):
+    """(term, e): the terminal tables of B rows of the bench bank (committed
+    terminal-cache entries: K1 = 8 polynomial and K2 = 12 sqrt-abs terms), cut
+    or zero-padded to K = (K1, K2) terms, rows 1..zero_rows given the
+    placeholder tables (all zero but app); errors (*lead, B, 9) of 0.3 on
+    positions and velocities and `omega` on the omega block (0.1: the PSD
+    shift active on most rows and not on some), row 0's omega exactly 0."""
+    term = take_rows(tile_bank(load_bank_snapshot(device=device, dtype=dtype), -(-B // 32)),
+                     torch.arange(B, device=device)).term
+    if K is not None:
+        def fit(c, pw, k):
+            n = min(k, c.shape[1])
+            return (torch.nn.functional.pad(c[:, :n], (0, k - n)).contiguous(),
+                    torch.nn.functional.pad(pw[:, :n], (0, 0, 0, k - n)).contiguous())
+        poly_c, poly_pow = fit(term.poly_c, term.poly_pow, K[0])
+        sqrt_c, sqrt_pow = fit(term.sqrt_c, term.sqrt_pow, K[1])
+        term = term._replace(poly_c=poly_c, poly_pow=poly_pow, sqrt_c=sqrt_c,
+                             sqrt_pow=sqrt_pow)
+    if zero_rows:
+        rows = slice(1, 1 + zero_rows)
+        term = type(term)(*[t.clone() for t in term])
+        for k, t in term._asdict().items():
+            if k != "app":
+                t[rows] = 0
+    e = gen.standard_normal((*lead, B, 9)) * 0.3
+    e[..., 6:9] *= omega / 0.3
+    e[..., 0, 6:9] = 0.0
+    return term, torch.as_tensor(e, dtype=dtype, device=device)
+
+
+def terminal_gaps(got, ref):
+    """Distances of the kernel's outputs from the reference's, each over the
+    reference output's largest entry: V, the gradient, the Hessian off the
+    omega block's diagonal and on it (where the PSD shift lands)."""
+    got, ref = (got,) if torch.is_tensor(got) else got, (ref,) if torch.is_tensor(ref) else ref
+    gaps = {}
+    for name, g, r in zip(("V", "g", "H"), got, ref):
+        d = (g.double() - r.double()).abs()
+        s = max(1.0, float(r.abs().max()))
+        if name == "H":
+            diag = torch.zeros(9, 9, dtype=torch.bool, device=d.device)
+            diag[6:, 6:] = torch.eye(3, dtype=torch.bool, device=d.device)
+            gaps["H_diag"] = float(d[..., diag].max()) / s
+            d = d[..., ~diag]
+        gaps[name] = float(d.max()) / s
+    return gaps
+
+
+def terminal_agrees(gaps, dtype, diag_f64=None, plain_diag_f64=None) -> bool:
+    """float64: every gap within TOL_TERMINAL_F64.  float32: V, the gradient
+    and H off the omega diagonal within TOL_TERMINAL_F32 of the plain
+    version; on the diagonal the kernel's distance from the float64 plain
+    version within TOL_TERMINAL_SHIFT_F32, or within 4 times the plain
+    float32 version's own distance from it."""
+    if dtype == torch.float64:
+        return max(gaps.values()) <= TOL_TERMINAL_F64
+    off = all(v <= TOL_TERMINAL_F32 for k, v in gaps.items() if k != "H_diag")
+    if diag_f64 is None:
+        return off
+    return off and diag_f64 <= max(TOL_TERMINAL_SHIFT_F32, 4 * plain_diag_f64)
+
+
+def shift_active(term, e):
+    """Rows whose omega block the plain version shifts."""
+    lam = torch.func.vmap(lambda t, w: tpoly._eigmin_sym3(
+        torch.func.hessian(lambda x: tpoly._extra_value(t, x))(w)))
+    return lam(term, e[..., 6:9]) < 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, F32], ids=["float64", "float32"])
+@pytest.mark.parametrize("B,lead,derivs,K,zero_rows,omega", [
+    (2048, (), True, None, 0, 0.1),     # the fleet cells' assembly
+    (2048, (), True, None, 0, 1.0),     # tumbling-size omega errors
+    (256, (), True, None, 0, 0.1),      # their cleanup's K = B/8
+    (137, (), True, None, 4, 0.1),      # the census cell, with placeholder rows
+    (17, (), True, None, 0, 0.1),       # the census's cleanup: a partly filled block
+    (1, (), True, None, 0, 0.1),        # the per-scenario path
+    (2048, (3,), False, None, 0, 0.1),  # the line search's candidates
+    (2048, (3,), False, None, 0, 1.0),
+    (137, (3,), False, None, 4, 0.1),
+    (1, (3,), False, None, 0, 0.1),
+    (64, (), True, (3, 5), 0, 0.1),     # tables other than the bank's
+    (64, (), True, (0, 32), 2, 0.1),
+    (64, (3,), False, (32, 1), 0, 0.1),
+])
+def test_terminal_kernel_matches_plain(dev, gen, B, lead, derivs, K, zero_rows, omega, dtype):
+    """One thread a row, the rows of P and H through shared memory: V, or
+    V, the gradient and the PSD-shifted Hessian, against the plain vmap
+    expressions on the same card; one launch a call and no plain call."""
+    term, e = terminal_case(gen, B, dtype, dev, lead, K, zero_rows, omega)
+    n0, p0 = ot.terminal_lanes.launches, ot.terminal_lanes.plain_calls
+    out = ot.terminal_lanes(term, e, derivs=derivs)
+    torch.cuda.synchronize()
+    assert (ot.terminal_lanes.launches, ot.terminal_lanes.plain_calls) == (n0 + 1, p0)
+    ref = ot.terminal_plain(term, e, derivs)
+    shapes = [(*lead, B), (*lead, B, 9), (*lead, B, 9, 9)]
+    for o, shape in zip((out,) if not derivs else out, shapes):
+        assert o.dtype == dtype and tuple(o.shape) == shape and o.is_contiguous()
+        assert torch.isfinite(o).all()
+    gaps = terminal_gaps(out, ref)
+    diag = {}
+    if derivs and dtype == F32:
+        term64 = type(term)(*[t.double() if t.is_floating_point() else t for t in term])
+        ref64 = ot.terminal_plain(term64, e.double(), True)
+        diag = dict(diag_f64=terminal_gaps(out, ref64)["H_diag"],
+                    plain_diag_f64=terminal_gaps(ref, ref64)["H_diag"])
+    assert terminal_agrees(gaps, dtype, **diag), (gaps, diag)
+    if derivs and K is None and B >= 17 and omega < 1.0:
+        active = shift_active(term, e)
+        assert 0 < int(active.sum()) < B
+
+
+def test_terminal_kernel_launches_in_a_condensed_step(dev):
+    """A warm-started condensed step (2 SQP iterations, the cleanup) on 64
+    rows: 7 launches (3 assemblies, 3 line searches, the trajectory's cost)
+    and no plain call."""
+    B, Nt = 64, 15
+    cfg = sp.MPCConfig(
+        horizon=Nt, sqp_iters=2, newton_iters=3, cleanup_iters=100, cleanup_k=8,
+        admm=StructuredADMMConfig(iters=60, phases=1, rho=50.0, adapt_clip=1.5),
+    )
+    traj = generate_trajectory("hover", 0.1, 5)
+    xr, ur = prepare_center_trajectory(traj, np.array([0.0, 0.0, 0.6]), 16.8, 0.1, Nt + 1)
+    rng = np.random.default_rng(0)
+    x0 = np.zeros((B, 13))
+    x0[:, 0:3] = rng.uniform(-0.4, 0.4, (B, 3))
+    q = rng.standard_normal((B, 4))
+    x0[:, 6:10] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    t = lambda a: torch.as_tensor(a, dtype=F32, device=dev)
+    bank = _bank(B, dev)
+    params = BodyParams.default(0.1, device=dev)
+    w = sp.MPCWeights.from_diagonals([1] * 6 + [2] * 3, [0.1] * 3 + [0.01] * 3, device=dev)
+    x0_t, x_ref, u_ref = t(x0), t(xr[: Nt + 1]), t(ur[: Nt + 1])
+    warm = sp.init_warmstart_batch(params, bank, w, cfg, sp.robot_to_center(bank.r, x0_t),
+                                   x_ref, u_ref)
+    n0, p0 = ot.terminal_lanes.launches, ot.terminal_lanes.plain_calls
+    out = sp.get_control_batch(params, bank, w, cfg, x0_t, x_ref, u_ref, warm)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.u_phys).all()
+    assert (ot.terminal_lanes.launches - n0, ot.terminal_lanes.plain_calls - p0) == (7, 0)
 
 
 def admm_case(gen, T, device, B=260, Nt=15, F=32, masked=False):

@@ -216,6 +216,7 @@ RECORDER_READERS = {
     "cleanup_self_ms": lambda p: 1e-6 * p.self_ns("ft_mpc.cleanup"),
     "stagewise_admm_self_ms": lambda p: 1e-6 * p.self_ns("ft_mpc.stagewise_admm"),
     "lqr_factor_self_ms": lambda p: 1e-6 * p.self_ns("ft_mpc.lqr_factor"),
+    "terminal_self_ms": lambda p: 1e-6 * p.self_ns("ft_mpc.terminal"),
 }
 
 

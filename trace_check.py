@@ -28,13 +28,17 @@ seed, the first warm start, the warm-up periods), then:
    `ft_mpc.step` that no nested span covers, and the largest gap, in one
    period, between the sum of its self times and the host time of its root
    spans (`ft_mpc.step` and `ft_mpc.shift`).
-5. The linearization's launches and plain calls
-   (`ops.linearize.linearize_lanes`), and the ADMM kernel's launches by
-   design (`solvers.lanes_qp.admm_lanes.launches_by_design`), a period over
-   all the blocks.
+5. The linearization's and the terminal terms' launches and plain calls
+   (`ops.linearize.linearize_lanes`, `ops.terminal.terminal_lanes`), and
+   the ADMM kernel's launches by design
+   (`solvers.lanes_qp.admm_lanes.launches_by_design`), a period over all
+   the blocks.
 6. Where the configuration has bounds (a state box, a wrench-rate bound),
    the count and self ms a period of `ft_mpc.ext_rows` (their dense rows'
    assembly and line-search terms) over the "on" blocks' periods.
+7. The terminal kernel alone against its plain version (`terminal_plain`)
+   on one more period's own inputs: the first call with derivatives (an
+   assembly's) and the first without (the line search's), ms a call.
 
 Prints one JSON line.
 """
@@ -168,12 +172,59 @@ def readings(periods):
             "self_sum_gap_max": max(gaps)}
 
 
+def terminal_timing(loop, cuda, sync, reps=20) -> dict:
+    """Step 7: ms a call of the terminal kernel (the wrapper on the cell's
+    device) and of `terminal_plain` on the (term, e) one period hands them.
+    On the card the device spins while the calls are queued, so the events
+    time the kernels alone."""
+    import torch
+
+    from ft_mpc_torch.controllers import spiraling
+    from ft_mpc_torch.ops.terminal import terminal_plain
+
+    seen, real = {}, spiraling.terminal_lanes
+
+    def capture(term, e, derivs=False):
+        seen.setdefault(derivs, (term, e.clone()))
+        return real(term, e, derivs=derivs)
+
+    spiraling.terminal_lanes = capture
+    try:
+        loop.period()
+    finally:
+        spiraling.terminal_lanes = real
+    sync()
+
+    def ms(fn, n):
+        fn()
+        sync()
+        if not cuda:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            return 1e3 * (time.perf_counter() - t0) / n
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2e7))  # at least 10 ms at up to 2 GHz
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / n
+
+    return {f"e={tuple(e.shape)} derivs={d}": {
+        "kernel_ms": ms(lambda: real(term, e, derivs=d), reps),
+        "plain_ms": ms(lambda: terminal_plain(term, e, d), 3)}
+        for d, (term, e) in sorted(seen.items())}
+
+
 def check(workload: str, seed: int, blocks: int, periods: int, device) -> dict:
     """Steps 1-4 on `device` (a CUDA device; the CPU runs them for a rehearsal,
     without the census's sync reports and the profiler's device activity)."""
     import torch
 
     from ft_mpc_torch.ops.linearize import linearize_lanes
+    from ft_mpc_torch.ops.terminal import terminal_lanes
     from ft_mpc_torch.solvers.lanes_qp import admm_lanes
     from ft_mpc_torch.utils import logging as L
     from perfbench import cell as cells, plant, run as bench, system
@@ -194,6 +245,7 @@ def check(workload: str, seed: int, blocks: int, periods: int, device) -> dict:
            "census": census(loop, rec, cuda, sync), "alignment": alignment(loop, rec, cuda, sync)}
     timed, on_periods = [], []
     lin0 = (linearize_lanes.launches, linearize_lanes.plain_calls)
+    term0 = (terminal_lanes.launches, terminal_lanes.plain_calls)
     admm0 = dict(admm_lanes.launches_by_design)
     for b in range(blocks):
         on = b % 4 in (0, 3)
@@ -210,6 +262,8 @@ def check(workload: str, seed: int, blocks: int, periods: int, device) -> dict:
     n = blocks * periods
     out["linearize_a_period"] = {"launches": (linearize_lanes.launches - lin0[0]) / n,
                                  "plain_calls": (linearize_lanes.plain_calls - lin0[1]) / n}
+    out["terminal_a_period"] = {"launches": (terminal_lanes.launches - term0[0]) / n,
+                                "plain_calls": (terminal_lanes.plain_calls - term0[1]) / n}
     out["admm_launches_a_period"] = {d: (k - admm0[d]) / n
                                      for d, k in admm_lanes.launches_by_design.items()}
     on_ms = [b["step_ms"] for b in timed if b["recorder"]]
@@ -220,6 +274,7 @@ def check(workload: str, seed: int, blocks: int, periods: int, device) -> dict:
         out["ext_rows"] = {"rows": cells.extra_rows(c.config),
                            "count": r["count"].get("ft_mpc.ext_rows", 0.0),
                            "self_ms": r["self_ms"].get("ft_mpc.ext_rows", 0.0)}
+    out["terminal_timing"] = terminal_timing(loop, cuda, sync)
     # after the readings: the empty spans land in the newest period
     out["cost"] = {"blocks": timed, "step_ms_on": statistics.median(on_ms),
                    "step_ms_off": statistics.median(off_ms), "us_a_span": span_cost_us()}
