@@ -221,10 +221,9 @@
    of float64 or 4 times the plain float32's distance (`terminal_gaps`),
    float64 within TOL_TERMINAL_F64; the kernel timed alone beside its bound,
    the wrapper's calls back to back and the plain version; then counts its
-   launches on 2 chained steps of both paths: 7 a condensed step (3
-   assemblies, 3 line searches, the trajectory's cost) and 1 more in
-   `init_warmstart_batch`, 8 a stagewise step (the cleanup's SQP adds a
-   trajectory cost), no plain call.
+   launches on 2 chained steps of both paths: 7 a step (3 assemblies, 3
+   line searches, the trajectory's cost) and 1 more in the condensed
+   `init_warmstart_batch`, no plain call.
 
 Prints the card's name and power limit, one JSON line with every kernel's
 numbers, and as its last line {"ok": true, "device": {...}}.  Exits with a
@@ -3511,7 +3510,7 @@ def drive_terminal(device, card: str, check) -> list:
     counted = terminal_launches(device)
     log(f"terminal launches: {json.dumps(counted)}; card: {card}")
     want = {"condensed": {"init": 1, "per_step": 7, "plain_calls": 0},
-            "stagewise": {"init": 0, "per_step": 8, "plain_calls": 0}}
+            "stagewise": {"init": 0, "per_step": 7, "plain_calls": 0}}
     check(counted == want, f"terminal launches {counted}, not {want}")
     for r in rows:
         r["launches"] = counted["stagewise" if "stagewise" in r["shape"]

@@ -483,194 +483,210 @@ def _per_scenario_ref(bank: Scenario, x_ref, B):
     return torch.cat([x_ref[..., :6], omega], dim=-1)
 
 
-def _trajectory_cost(bank: Scenario, weights: MPCWeights, X, U, x_ref):
-    """Running + terminal cost (B,) of (X, U) against x_ref (B, Nt+1, 9)."""
+def _with_cost(bank: Scenario, weights: MPCWeights, x_ref, warm: WarmStart,
+               info: SQPInfo) -> SQPInfo:
+    """`info` with its cost: the running + terminal cost (B,) of warm's
+    (X, U) against the shared window x_ref (Nt+1, 9)."""
+    x_ref = _per_scenario_ref(bank, x_ref, warm.X.shape[0])
+    X, U = warm.X, warm.U
     e_run = X[:, :-1, :N_OPT] - x_ref[:, :-1]
     e_N = X[:, -1, :N_OPT] - x_ref[:, -1]
-    return (
+    cost = (
         torch.einsum("bti,ij,btj->b", e_run, weights.Q, e_run)
         + torch.einsum("bti,ij,btj->b", U, weights.R, U)
         + terminal_lanes(bank.term, e_N)
     )
+    return info._replace(cost=cost)
 
 
-def sqp_solve_batch(params: BodyParams, bank: Scenario, weights: MPCWeights,
-                    cfg: MPCConfig, c0, x_ref, u_ref, warm: WarmStart):
-    """Batched SQP over a scenario bank on the condensed backend.
-
-    warm.kinv is Newton-refreshed each solve and carried across steps;
-    with kinv=None the exact metric is factored once before the loop.
-    """
-    if cfg.sqp_iters < 1:
-        raise ValueError("sqp_solve_batch needs sqp_iters >= 1")
-    Nt = cfg.horizon
-    B = c0.shape[0]
-    x_ref = _per_scenario_ref(bank, x_ref, B)
-    hull_A, hull_b, term_A, term_b = _masked_geometry(bank)
-    X = torch.cat([c0[:, None], warm.X[:, 1:]], dim=1)
-
-    kinv = warm.kinv
-    if kinv is None:
-        qp0, _, _, _ = _assemble_condensed_batch(
-            params, bank, weights, cfg, X, warm.U, x_ref, u_ref,
-            hull_A, hull_b, term_A, term_b,
-        )
-        K0, _ = build_K(qp0, warm.rho.to(torch.float32), cfg.admm.sigma)
-        kinv = exact_kinv(K0)
-
-    U, yh, yt, rho = warm.U, warm.y_hull, warm.y_term, warm.rho
-    for _ in range(cfg.sqp_iters):
-        qp, S_all, phi_all, defects = _assemble_condensed_batch(
-            params, bank, weights, cfg, X, U, x_ref, u_ref,
-            hull_A, hull_b, term_A, term_b,
-        )
-        sol = solve_mpc_qp_lanes(
-            qp, cfg.admm, y_hull0=yh, y_term0=yt, rho0=rho, kinv0=kinv,
-            newton_iters=cfg.newton_iters,
-        )
-        dU = sol.x.reshape(B, Nt, N_U)
-        dX = torch.einsum("btin,bn->bti", S_all, sol.x) + phi_all
-        with span("ft_mpc.line_search"):
-            alpha = _merit_alpha(params, bank, weights, cfg, X, U, dX, dU, x_ref,
-                                 u_ref, hull_A, hull_b, term_A, term_b)
-        a = alpha[:, None, None]
-        U = U + a * dU
-        X = torch.cat([X[:, :1], X[:, 1:] + a * dX], dim=1)
-        r_prim_f, r_dual_f, term_gap_f = sol.r_prim, sol.r_dual, sol.term_gap
-        defect_f = torch.abs(defects).amax(dim=(1, 2))
-        du_norm_f = alpha * torch.abs(sol.x).amax(dim=1)
-        yh, yt, rho, kinv = sol.y_hull, sol.y_term, sol.rho.to(rho.dtype), sol.kinv
-
-    n_rounds = cfg.cleanup_rounds if (cfg.cleanup_iters > 0 and cfg.cleanup_k > 0) else 0
-    p_ax = params_batch_axes(params)
-    for _ in range(n_rounds):
-        with span("ft_mpc.cleanup"):
-            # Worst-K on QP residual + SQP step + shooting defect; torch.topk may
-            # order ties differently from lax.top_k.
-            K = min(cfg.cleanup_k, B)
-            _, idx = torch.topk(r_prim_f + du_norm_f + defect_f, K)
-            bank_s = take_rows(bank, idx)
-            params_s = _params_row(params, p_ax, idx)
-            X_s, U_s = X[idx], U[idx]
-            qp_s, S_s, phi_s, defects_s = _assemble_condensed_batch(
-                params_s, bank_s, weights, cfg, X_s, U_s, x_ref[idx], u_ref,
-                hull_A[idx], hull_b[idx], term_A[idx], term_b[idx],
-            )
-            ccfg = cfg.admm._replace(iters=cfg.cleanup_iters, phases=cfg.cleanup_phases,
-                                     adapt_clip=5.0)
-            # kinv0=None: exact inverse and exact per-phase refactor
-            sol = solve_mpc_qp_lanes(qp_s, ccfg, y_hull0=yh[idx], y_term0=yt[idx],
-                                     rho0=rho[idx])
-            dU_s = sol.x.reshape(K, Nt, N_U)
-            dX_s = torch.einsum("btin,bn->bti", S_s, sol.x) + phi_s
-            alpha = _merit_alpha(params_s, bank_s, weights, cfg, X_s, U_s, dX_s, dU_s,
-                                 x_ref[idx], u_ref, hull_A[idx], hull_b[idx],
-                                 term_A[idx], term_b[idx])
-            a = alpha[:, None, None]
-            # Scatter back in place (the JAX path's .at[idx].set): every target
-            # was produced inside this call, so no caller tensor is written.
-            X.index_copy_(0, idx, torch.cat([X_s[:, :1], X_s[:, 1:] + a * dX_s], dim=1))
-            U.index_copy_(0, idx, U_s + a * dU_s)
-            yh.index_copy_(0, idx, sol.y_hull)
-            yt.index_copy_(0, idx, sol.y_term)
-            rho.index_copy_(0, idx, sol.rho.to(rho.dtype))
-            kinv.index_copy_(0, idx, sol.kinv)
-            r_prim_f.index_copy_(0, idx, sol.r_prim)
-            r_dual_f.index_copy_(0, idx, sol.r_dual)
-            defect_f.index_copy_(0, idx, torch.abs(defects_s).amax(dim=(1, 2)))
-            du_norm_f.index_copy_(0, idx, alpha * torch.abs(sol.x).amax(dim=1))
-            term_gap_f.index_copy_(0, idx, sol.term_gap)
-
-    cost = _trajectory_cost(bank, weights, X, U, x_ref)
-    info = SQPInfo(cost=cost, r_prim=r_prim_f, r_dual=r_dual_f, defect=defect_f,
-                   du_norm=du_norm_f, term_gap=term_gap_f)
-    return WarmStart(X=X, U=U, y_hull=yh, y_term=yt, rho=rho, kinv=kinv), info
+def _condensed_step(sol, S_all, phi_all, defects, warm: WarmStart, **solved):
+    """A condensed QP step's result from its solution (see `_sqp_iteration`)."""
+    B, Nt = warm.U.shape[:2]
+    dX = torch.einsum("btin,bn->bti", S_all, sol.x) + phi_all
+    return (dX, sol.x.reshape(B, Nt, N_U), defects,
+            warm._replace(y_hull=sol.y_hull, y_term=sol.y_term, **solved), sol)
 
 
-class _Carry(NamedTuple):
-    """What one SQP iteration hands the next (batch-leading)."""
+def _qp_condensed_lanes(params, bank, weights, cfg, x_ref, u_ref, geo, warm):
+    """The batched condensed QP step: the condensing kernel's assembly and
+    the ADMM kernel on warm.kinv, Newton-refreshed (exact where it is None,
+    and then refactored exactly every phase)."""
+    qp, S_all, phi_all, defects = _assemble_condensed_batch(
+        params, bank, weights, cfg, warm.X, warm.U, x_ref, u_ref, *geo)
+    sol = solve_mpc_qp_lanes(qp, cfg.admm, y_hull0=warm.y_hull, y_term0=warm.y_term,
+                             rho0=warm.rho, kinv0=warm.kinv, newton_iters=cfg.newton_iters)
+    return _condensed_step(sol, S_all, phi_all, defects, warm,
+                           rho=sol.rho.to(warm.rho.dtype), kinv=sol.kinv)
 
-    X: torch.Tensor
-    U: torch.Tensor
-    y_hull: torch.Tensor
-    y_term: torch.Tensor
-    rho: torch.Tensor
+
+def _qp_condensed_rows(params, bank, weights, cfg, x_ref, u_ref, geo, warm):
+    """The per-scenario condensed QP step: the plain assembly and the
+    exact-refactor solver; warm.kinv is not read."""
+    qp, S_all, phi_all, defects = _assemble_condensed(
+        params, bank, weights, cfg, warm.X, warm.U, x_ref, u_ref, *geo)
+    with span("ft_mpc.qp"):
+        sol = solve_mpc_qp(qp, cfg.admm, y_hull0=warm.y_hull, y_term0=warm.y_term,
+                           rho0=warm.rho)
+    return _condensed_step(sol, S_all, phi_all, defects, warm, rho=sol.rho)
 
 
-def _sqp_iteration(params, bank, weights, cfg, x_ref, u_ref, geo, stagewise_solve,
-                   admm_cfg, carry: _Carry):
-    """One SQP iteration on B rows: assemble, solve the QP, line search.
+def _qp_stagewise(solve, params, bank, weights, cfg, x_ref, u_ref, geo, warm):
+    """The stagewise QP step on `solve` with `cfg.stagewise`.  The warm
+    y_term may carry extra condensed-layout rows (state box); only the true
+    terminal duals ride through that solver."""
+    qp, defects = _assemble_stagewise(params, bank, weights, cfg, warm.X, warm.U,
+                                      x_ref, u_ref, *geo)
+    T_rows = geo[2].shape[-2]
+    yt = warm.y_term
+    sol = solve(qp, cfg.stagewise, y_hull0=warm.y_hull, y_term0=yt[:, :T_rows],
+                rho0=warm.rho)
+    solved = warm._replace(y_hull=sol.y_hull, rho=sol.rho,
+                           y_term=torch.cat([sol.y_term, yt[:, T_rows:]], dim=1))
+    return sol.dX[:, 1:], sol.dU, defects, solved, sol
 
-    Condensed: the plain assembly and the exact-refactor `solve_mpc_qp` with
-    `admm_cfg`.  Stagewise: `stagewise_solve` with `cfg.stagewise`; the warm
-    y_term may carry extra condensed-layout rows (state box), and only the
-    true terminal duals ride through that solver.  Returns the new carry and
-    (r_prim, r_dual, defect, du_norm, term_gap), each (B,).
-    """
-    X, U, yh, yt, rho = carry
-    B, Nt = U.shape[:2]
+
+def _qp_step_rows(cfg: MPCConfig):
+    """The per-scenario path's QP step for `cfg.qp_backend` (plain torch)."""
+    _check_backend(cfg)
     if cfg.qp_backend == "condensed":
-        qp, S_all, phi_all, defects = _assemble_condensed(
-            params, bank, weights, cfg, X, U, x_ref, u_ref, *geo)
-        with span("ft_mpc.qp"):
-            sol = solve_mpc_qp(qp, admm_cfg, y_hull0=yh, y_term0=yt, rho0=rho)
-        dU = sol.x.reshape(B, Nt, N_U)
-        dX = torch.einsum("btin,bn->bti", S_all, sol.x) + phi_all
-        du_raw = torch.abs(sol.x).amax(dim=1)
-        yt_new = sol.y_term
-    else:
-        qp, defects = _assemble_stagewise(params, bank, weights, cfg, X, U, x_ref, u_ref,
-                                          *geo)
-        T_rows = geo[2].shape[-2]
-        sol = stagewise_solve(qp, cfg.stagewise, y_hull0=yh, y_term0=yt[:, :T_rows],
-                              rho0=rho)
-        dU, dX = sol.dU, sol.dX[:, 1:]
-        du_raw = torch.abs(dU).amax(dim=(1, 2))
-        yt_new = torch.cat([sol.y_term, yt[:, T_rows:]], dim=1)
+        return _qp_condensed_rows
+    return partial(_qp_stagewise, solve_mpc_qp_stagewise)
+
+
+def _sqp_iteration(qp_step, params, bank, weights, x_ref, u_ref, geo, cfg,
+                   warm: WarmStart):
+    """One SQP iteration on B rows: the QP step, the merit line search, the
+    step.  The QP step assembles and solves the QP at warm's (X, U) and
+    returns the state step dX (B, Nt, 13) of stages 1..Nt, dU (B, Nt, 6),
+    the defects, warm with the solve's duals, rho and metric, and the
+    solution (its r_prim, r_dual, term_gap).  Returns the new warm start and
+    the iteration's SQPInfo without its cost."""
+    X, U = warm.X, warm.U
+    dX, dU, defects, solved, sol = qp_step(params, bank, weights, cfg, x_ref, u_ref, geo,
+                                           warm)
     with span("ft_mpc.line_search"):
         alpha = _merit_alpha(params, bank, weights, cfg, X, U, dX, dU, x_ref, u_ref, *geo)
     a = alpha[:, None, None]
-    new = _Carry(X=torch.cat([X[:, :1], X[:, 1:] + a * dX], dim=1), U=U + a * dU,
-                 y_hull=sol.y_hull, y_term=yt_new, rho=sol.rho)
-    info = (sol.r_prim, sol.r_dual, torch.abs(defects).amax(dim=(1, 2)), alpha * du_raw,
-            sol.term_gap)
+    new = solved._replace(X=torch.cat([X[:, :1], X[:, 1:] + a * dX], dim=1), U=U + a * dU)
+    info = SQPInfo(cost=None, r_prim=sol.r_prim, r_dual=sol.r_dual,
+                   defect=torch.abs(defects).amax(dim=(1, 2)),
+                   du_norm=alpha * torch.abs(dU).amax(dim=(1, 2)), term_gap=sol.term_gap)
     return new, info
 
 
+def _where_rows(need, new, old):
+    """`old` with the rows where `need` holds taken from `new` (None leaves
+    pass)."""
+    return type(old)(*(None if a is None else
+                       torch.where(need.view(-1, *(1,) * (a.dim() - 1)), b, a)
+                       for a, b in zip(old, new)))
+
+
 def _sqp_scan(params, bank, weights, cfg, c0, x_ref, u_ref, warm: WarmStart,
-              stagewise_solve, refine: bool):
-    """sqp_iters SQP iterations on B rows, then (with `refine`) up to
-    refine_iters gated ones, each kept only on the rows that still need it."""
+              qp_step, refine: bool = False):
+    """sqp_iters SQP iterations of `qp_step` on B rows, then (with `refine`)
+    up to refine_iters gated ones at `cfg.refine_admm`, each kept only on the
+    rows that still need it.  Returns the new warm start and the SQPInfo
+    without its cost."""
     if cfg.sqp_iters < 1:
         raise ValueError("the SQP needs sqp_iters >= 1")
     B = c0.shape[0]
     x_ref = _per_scenario_ref(bank, x_ref, B)
     geo = _masked_geometry(bank)
-    step = partial(_sqp_iteration, params, bank, weights, cfg, x_ref, u_ref, geo,
-                   stagewise_solve)
-    carry = _Carry(X=torch.cat([c0[:, None], warm.X[:, 1:]], dim=1), U=warm.U,
-                   y_hull=warm.y_hull, y_term=warm.y_term, rho=warm.rho.expand(B))
+    step = partial(_sqp_iteration, qp_step, params, bank, weights, x_ref, u_ref, geo)
+    warm = warm._replace(X=torch.cat([c0[:, None], warm.X[:, 1:]], dim=1),
+                         rho=warm.rho.expand(B))
     for _ in range(cfg.sqp_iters):
-        carry, info = step(cfg.admm, carry)
+        warm, info = step(cfg, warm)
     if refine:
         # The JAX package gates each refine iteration with lax.cond, a select
         # under vmap: every row computes it, the rows that have converged keep
         # their state.  Once no row needs it, every later iteration would keep
         # every row as it is, so the loop stops there (one host read an
         # iteration; the values are those of the full loop).
+        rcfg = cfg._replace(admm=cfg.refine_admm or cfg.admm)
         for _ in range(cfg.refine_iters):
-            need = torch.maximum(info[0], info[3]) > cfg.refine_tol
+            need = torch.maximum(info.r_prim, info.du_norm) > cfg.refine_tol
             with span("ft_mpc.sync"):
                 needed = bool(need.any())
             if not needed:
                 break
-            new, new_info = step(cfg.refine_admm or cfg.admm, carry)
-            keep = lambda a, b: torch.where(need.view(-1, *(1,) * (a.dim() - 1)), b, a)
-            carry = _Carry(*map(keep, carry, new))
-            info = tuple(map(keep, info, new_info))
-    cost = _trajectory_cost(bank, weights, carry.X, carry.U, x_ref)
-    return (WarmStart(*carry, kinv=warm.kinv),
-            SQPInfo(cost, *info))
+            new, new_info = step(rcfg, warm)
+            warm, info = _where_rows(need, new, warm), _where_rows(need, new_info, info)
+    return warm, info
+
+
+def _rows(tree, idx):
+    """Rows idx of every tensor leaf of a NamedTuple (None leaves pass)."""
+    return type(tree)(*(None if a is None else a[idx] for a in tree))
+
+
+def _set_rows(tree, idx, rows):
+    """`tree` with rows idx of every tensor leaf replaced (out of place)."""
+    return type(tree)(*(None if a is None else a.index_copy(0, idx, b)
+                        for a, b in zip(tree, rows)))
+
+
+def _cleanup_config(cfg: MPCConfig) -> MPCConfig:
+    """The cleanup's configuration on either backend: one SQP iteration at a
+    cleanup_iters x cleanup_phases ADMM budget, with the loose rho clip of a
+    cold metric, and no cleanup of its own."""
+    budget = dict(iters=cfg.cleanup_iters, phases=cfg.cleanup_phases, adapt_clip=5.0)
+    return cfg._replace(sqp_iters=1, cleanup_iters=0, admm=cfg.admm._replace(**budget),
+                        stagewise=cfg.stagewise._replace(**budget))
+
+
+def _cleanup(scan, params, bank, weights, cfg, c0, x_ref, u_ref, warm: WarmStart,
+             info: SQPInfo):
+    """The worst-K cleanup of the batched backends.  Each of cleanup_rounds
+    rounds ranks the rows on r_prim + du_norm + defect (the QP residual, the
+    SQP step and the shooting defect), runs `scan`, the backend's own, at
+    `_cleanup_config` on the K = min(cleanup_k, B) worst rows from their
+    duals and rho (kinv None: an exact metric) and writes their results
+    back, out of place."""
+    if cfg.cleanup_iters <= 0 or cfg.cleanup_k <= 0:
+        return warm, info
+    ccfg = _cleanup_config(cfg)
+    p_ax = params_batch_axes(params)
+    K = min(cfg.cleanup_k, c0.shape[0])
+    for _ in range(cfg.cleanup_rounds):
+        with span("ft_mpc.cleanup"):
+            # torch.topk may order ties differently from lax.top_k
+            _, idx = torch.topk(info.r_prim + info.du_norm + info.defect, K)
+            warm_k, info_k = scan(_params_row(params, p_ax, idx), take_rows(bank, idx),
+                                  weights, ccfg, c0[idx], x_ref, u_ref,
+                                  _rows(warm._replace(kinv=None), idx))
+            warm, info = _set_rows(warm, idx, warm_k), _set_rows(info, idx, info_k)
+    return warm, info
+
+
+def _cold_kinv(params, bank, weights, cfg, c0, x_ref, u_ref, warm: WarmStart):
+    """The exact K^{-1} of the condensed QP at warm's trajectory pinned to
+    c0, at warm.rho: the metric a cold start carries into its first solve."""
+    X = torch.cat([c0[:, None], warm.X[:, 1:]], dim=1)
+    qp, _, _, _ = _assemble_condensed_batch(
+        params, bank, weights, cfg, X, warm.U, _per_scenario_ref(bank, x_ref, c0.shape[0]),
+        u_ref, *_masked_geometry(bank))
+    K, _ = build_K(qp, warm.rho.to(torch.float32), cfg.admm.sigma)
+    return exact_kinv(K)
+
+
+def sqp_solve_batch(params: BodyParams, bank: Scenario, weights: MPCWeights,
+                    cfg: MPCConfig, c0, x_ref, u_ref, warm: WarmStart):
+    """Batched SQP over a scenario bank on the condensed backend, then the
+    worst-K cleanup.
+
+    warm.kinv is Newton-refreshed each solve and carried across steps;
+    with kinv=None the exact metric is factored once before the loop.
+    """
+    if warm.kinv is None:
+        warm = warm._replace(kinv=_cold_kinv(params, bank, weights, cfg, c0, x_ref, u_ref,
+                                             warm))
+    scan = partial(_sqp_scan, qp_step=_qp_condensed_lanes)
+    new_warm, info = scan(params, bank, weights, cfg, c0, x_ref, u_ref, warm)
+    new_warm, info = _cleanup(scan, params, bank, weights, cfg, c0, x_ref, u_ref,
+                              new_warm, info)
+    return new_warm, _with_cost(bank, weights, x_ref, new_warm, info)
 
 
 def sqp_solve_rows(params: BodyParams, bank: Scenario, weights: MPCWeights,
@@ -683,9 +699,9 @@ def sqp_solve_rows(params: BodyParams, bank: Scenario, weights: MPCWeights,
     `solve_mpc_qp`, the stagewise one on `solve_mpc_qp_stagewise` in
     `cfg.stagewise.mode`, and the gated refinement.  Plain torch: no kernel.
     """
-    _check_backend(cfg)
-    return _sqp_scan(params, bank, weights, cfg, c0, x_ref, u_ref, warm,
-                     solve_mpc_qp_stagewise, refine=cfg.refine_iters > 0)
+    new_warm, info = _sqp_scan(params, bank, weights, cfg, c0, x_ref, u_ref, warm,
+                               _qp_step_rows(cfg), refine=cfg.refine_iters > 0)
+    return new_warm, _with_cost(bank, weights, x_ref, new_warm, info)
 
 
 def _one(tree):
@@ -708,61 +724,31 @@ def sqp_solve(params: BodyParams, scenario: Scenario, weights: MPCWeights,
 
 def _sqp_batch_stagewise_core(params, bank, weights, cfg, c0, x_ref, u_ref,
                               warm: WarmStart):
-    """One batched stagewise SQP scan (no cleanup).
+    """One batched stagewise SQP scan (no cleanup; the info without its cost).
 
     mode='lanes' (`cfg.stagewise.mode`): batched assembly +
     `solve_mpc_qp_stagewise_lanes`, whose every ADMM x-update is two kernel
-    launches for the whole bank.  Other modes: the per-scenario
-    `sqp_solve_rows` on the bank (the JAX package's vmap of `sqp_solve`).
+    launches for the whole bank.  Other modes: the per-scenario path's scan
+    on the bank, refinement included (the JAX package's vmap of `sqp_solve`).
     """
     if cfg.stagewise.mode != "lanes":
-        return sqp_solve_rows(params, bank, weights, cfg, c0, x_ref, u_ref, warm)
+        return _sqp_scan(params, bank, weights, cfg, c0, x_ref, u_ref, warm,
+                         _qp_step_rows(cfg), refine=cfg.refine_iters > 0)
     return _sqp_scan(params, bank, weights, cfg, c0, x_ref, u_ref, warm,
-                     solve_mpc_qp_stagewise_lanes, refine=False)
-
-
-def _rows(tree, idx):
-    """Rows idx of every tensor leaf of a NamedTuple (None leaves pass)."""
-    return type(tree)(*(None if a is None else a[idx] for a in tree))
-
-
-def _set_rows(tree, idx, rows):
-    """`tree` with rows idx of every tensor leaf replaced (out of place)."""
-    return type(tree)(*(None if a is None else a.index_copy(0, idx, b)
-                        for a, b in zip(tree, rows)))
+                     partial(_qp_stagewise, solve_mpc_qp_stagewise_lanes))
 
 
 def sqp_solve_batch_stagewise(params: BodyParams, bank: Scenario, weights: MPCWeights,
                               cfg: MPCConfig, c0, x_ref, u_ref, warm: WarmStart):
-    """Batched SQP on the stagewise (Riccati-in-ADMM) backend + tail cleanup.
-
-    The batched core, then the same worst-K discipline as the condensed
-    backend: the K scenarios with the worst residual key get one extra SQP
-    iteration with a cleanup_iters x cleanup_phases ADMM budget.  warm.kinv
-    stays None: this backend has no condensed metric.
+    """Batched SQP on the stagewise (Riccati-in-ADMM) backend, then the same
+    worst-K cleanup as the condensed backend.  warm.kinv stays None: this
+    backend has no condensed metric.
     """
     new_warm, info = _sqp_batch_stagewise_core(params, bank, weights, cfg, c0, x_ref,
                                                u_ref, warm)
-    n_rounds = cfg.cleanup_rounds if (cfg.cleanup_iters > 0 and cfg.cleanup_k > 0) else 0
-    p_ax = params_batch_axes(params)
-    for _ in range(n_rounds):
-        with span("ft_mpc.cleanup"):
-            K = min(cfg.cleanup_k, c0.shape[0])
-            # same transient-aware worst-K key as the condensed batch path
-            _, idx = torch.topk(info.r_prim + info.du_norm + info.defect, K)
-            ccfg = cfg._replace(
-                sqp_iters=1,
-                stagewise=cfg.stagewise._replace(
-                    iters=cfg.cleanup_iters, phases=cfg.cleanup_phases, adapt_clip=5.0),
-                cleanup_iters=0,
-            )
-            warm_c, info_c = _sqp_batch_stagewise_core(
-                _params_row(params, p_ax, idx), take_rows(bank, idx), weights, ccfg,
-                c0[idx], x_ref, u_ref, _rows(new_warm, idx),
-            )
-            new_warm = _set_rows(new_warm, idx, warm_c)
-            info = _set_rows(info, idx, info_c)
-    return new_warm, info
+    new_warm, info = _cleanup(_sqp_batch_stagewise_core, params, bank, weights, cfg, c0,
+                              x_ref, u_ref, new_warm, info)
+    return new_warm, _with_cost(bank, weights, x_ref, new_warm, info)
 
 
 def _check_backend(cfg: MPCConfig) -> None:
@@ -781,14 +767,7 @@ def init_warmstart_batch(params: BodyParams, bank: Scenario, weights: MPCWeights
     warm = init_warmstart(params, bank, cfg, c0, weights=weights)
     if cfg.qp_backend == "stagewise":
         return warm
-    hull_A, hull_b, term_A, term_b = _masked_geometry(bank)
-    x_ref = _per_scenario_ref(bank, x_ref, c0.shape[0])
-    qp, _, _, _ = _assemble_condensed_batch(
-        params, bank, weights, cfg, warm.X, warm.U, x_ref, u_ref,
-        hull_A, hull_b, term_A, term_b,
-    )
-    K, _ = build_K(qp, warm.rho.to(torch.float32), cfg.admm.sigma)
-    return warm._replace(kinv=exact_kinv(K))
+    return warm._replace(kinv=_cold_kinv(params, bank, weights, cfg, c0, x_ref, u_ref, warm))
 
 
 def _wrench_command(scenario: Scenario, c0, u0, u_ref0):

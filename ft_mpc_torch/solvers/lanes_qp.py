@@ -24,7 +24,12 @@ import torch
 
 from ft_mpc_torch import kernels
 from ft_mpc_torch.solvers.admm import chol_inverse
-from ft_mpc_torch.solvers.mpc_qp import StructuredADMMConfig, StructuredMPCQP
+from ft_mpc_torch.solvers.mpc_qp import (
+    StructuredADMMConfig,
+    StructuredMPCQP,
+    elastic_gap,
+    rho_factor,
+)
 from ft_mpc_torch.utils.logging import span
 
 N_U = 6
@@ -326,15 +331,12 @@ def _solve_phases(qp, cfg, y_hull0, y_term0, rho0, kinv0, newton_iters) -> Lanes
                 )
             )
 
-        # residuals + rho adaptation (same formulas as mpc_qp.run_phase)
+        # residuals + rho adaptation (the rule of mpc_qp.solve_mpc_qp)
         Gh = torch.einsum("btj,bfj->btf", x.reshape(B, Nt, N_U), qp.hull_A)
         Gt_x = torch.einsum("btn,bn->bt", qp.G_term, x)
         term_res = torch.abs(Gt_x - zt)
         if cfg.elastic_y_max > 0:
-            at_clamp = yt_n >= 0.999 * cfg.elastic_y_max
-            term_gap = torch.where(
-                at_clamp, torch.clamp(Gt_x - qp.h_term, min=0.0), 0.0
-            ).amax(dim=1)
+            term_gap = elastic_gap(yt_n, Gt_x, qp.h_term, cfg.elastic_y_max, 1)
         else:
             term_gap = torch.zeros((B,), dtype=dtype, device=dev)
         r_prim = torch.maximum(
@@ -346,19 +348,11 @@ def _solve_phases(qp, cfg, y_hull0, y_term0, rho0, kinv0, newton_iters) -> Lanes
         )
         Hx = torch.einsum("bij,bj->bi", qp.H, x)
         r_dual = torch.abs(Hx + qp.g + gty).amax(dim=1)
-        prim_scale = torch.clamp(
-            torch.maximum(torch.abs(Gh).amax(dim=(1, 2)), torch.abs(zh).amax(dim=(1, 2))),
-            min=1e-6,
-        )
-        dual_scale = torch.clamp(
-            torch.maximum(torch.abs(Hx).amax(dim=1), torch.abs(qp.g).amax(dim=1)),
-            min=1e-6,
-        )
-        ratio = (r_prim / prim_scale) / torch.clamp(r_dual / dual_scale, min=1e-12)
-        factor = torch.clamp(torch.sqrt(ratio), 1.0 / cfg.adapt_clip, cfg.adapt_clip)
-        # freeze rho on converged lanes (the ratio is noise there; a
-        # random-walking warm rho would force exact refactors)
-        factor = torch.where(r_prim <= 1e-4, 1.0, factor)
+        prim_scale = torch.maximum(torch.abs(Gh).amax(dim=(1, 2)),
+                                   torch.abs(zh).amax(dim=(1, 2)))
+        dual_scale = torch.maximum(torch.abs(Hx).amax(dim=1), torch.abs(qp.g).amax(dim=1))
+        # the converged-lane freeze also spares a warm K^-1 needless refreshes
+        factor = rho_factor(r_prim, prim_scale, r_dual, dual_scale, cfg.adapt_clip)
         rho_new = torch.clamp(rho * factor.to(f32), cfg.rho_min, cfg.rho_max)
         if cfg.phases > 1:
             # exact refactor per phase on the cold path (rho may jump 5x);

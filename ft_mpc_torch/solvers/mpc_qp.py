@@ -65,6 +65,34 @@ class StructuredSolution(NamedTuple):
     term_gap: torch.Tensor  # (...,)
 
 
+def rho_factor(r_prim, prim_scale, r_dual, dual_scale, adapt_clip: float):
+    """The per-phase rho factor of every ADMM solver of the family: the
+    square root of the scaled residuals' ratio (scales floored at 1e-6),
+    bounded to [1/adapt_clip, adapt_clip], and 1 where r_prim <= 1e-4 (the
+    ratio is noise once converged; a carried rho would random-walk)."""
+    prim_scale = torch.clamp(prim_scale, min=1e-6)
+    dual_scale = torch.clamp(dual_scale, min=1e-6)
+    ratio = (r_prim / prim_scale) / torch.clamp(r_dual / dual_scale, min=1e-12)
+    factor = torch.clamp(torch.sqrt(ratio), 1.0 / adapt_clip, adapt_clip)
+    return torch.where(r_prim <= 1e-4, 1.0, factor)
+
+
+def elastic_gap(y, Gz, h, y_max: float, dim):
+    """The restoration gap: the largest violation max(Gz - h, 0) over the
+    elastic rows whose dual sits at the clamp y_max, reduced over `dim`.
+    The consensus residual stays honest on elastic rows; this is what
+    reports their infeasibility."""
+    over = torch.clamp(Gz - h, min=0.0)
+    return torch.where(y >= 0.999 * y_max, over, 0.0).amax(dim=dim)
+
+
+def hinge_prox(v, h, shift):
+    """Exact prox of the hinge penalty y_max * max(z - h, 0) at v, with
+    shift = y_max / rho: past the clamp z floats beyond h, so consensus
+    converges on infeasible rows and the dual saturates at y_max."""
+    return torch.where(v > h + shift, v - shift, torch.minimum(v, h))
+
+
 def _kron_eye(Nt: int, M: torch.Tensor) -> torch.Tensor:
     """I_Nt kron M for M (..., k, k), batched over the leading dims."""
     eye = torch.eye(Nt, dtype=M.dtype, device=M.device)
@@ -132,11 +160,7 @@ def solve_mpc_qp(
             zh_new = torch.minimum(zh_hat + yh / r3, h_hull)
             vt = zt_hat + yt / r2
             if y_max > 0:
-                # exact prox of the hinge penalty y_max * max(z - h, 0): past
-                # the clamp z floats beyond h, so consensus converges on
-                # infeasible rows and the dual saturates at y_max
-                soft = vt > h_term + y_max / r2
-                zt_new = torch.where(soft, vt - y_max / r2, torch.minimum(vt, h_term))
+                zt_new = hinge_prox(vt, h_term, y_max / r2)
             else:
                 zt_new = torch.minimum(vt, h_term)
             yh = yh + r3 * (zh_hat - zh_new)
@@ -146,26 +170,17 @@ def solve_mpc_qp(
             zh, zt = zh_new, zt_new
 
         Gh, Gt = Gx(x)
-        # the consensus residual is honest on elastic rows too; the gap is
-        # reported for rows whose dual saturates at the clamp
         if y_max > 0:
-            at_clamp = yt >= 0.999 * y_max
-            term_gap = torch.where(at_clamp, torch.clamp(Gt - h_term, min=0.0),
-                                   0.0).amax(dim=-1)
+            term_gap = elastic_gap(yt, Gt, h_term, y_max, -1)
         else:
             term_gap = torch.zeros(lead, **kw)
         r_prim = torch.maximum((Gh - zh).abs().amax(dim=(-2, -1)),
                                (Gt - zt).abs().amax(dim=-1))
         Hx = (H @ x.unsqueeze(-1)).squeeze(-1)
         r_dual = (Hx + g + GTy(yh, yt)).abs().amax(dim=-1)
-        prim_scale = torch.clamp(torch.maximum(Gh.abs().amax(dim=(-2, -1)),
-                                               zh.abs().amax(dim=(-2, -1))), min=1e-6)
-        dual_scale = torch.clamp(torch.maximum(Hx.abs().amax(dim=-1),
-                                               g.abs().amax(dim=-1)), min=1e-6)
-        ratio = (r_prim / prim_scale) / torch.clamp(r_dual / dual_scale, min=1e-12)
-        # bounded per-phase change; frozen once converged (the ratio is noise)
-        factor = torch.clamp(torch.sqrt(ratio), 1.0 / cfg.adapt_clip, cfg.adapt_clip)
-        factor = torch.where(r_prim <= 1e-4, 1.0, factor)
+        prim_scale = torch.maximum(Gh.abs().amax(dim=(-2, -1)), zh.abs().amax(dim=(-2, -1)))
+        dual_scale = torch.maximum(Hx.abs().amax(dim=-1), g.abs().amax(dim=-1))
+        factor = rho_factor(r_prim, prim_scale, r_dual, dual_scale, cfg.adapt_clip)
         rho = torch.clamp(rho * factor, cfg.rho_min, cfg.rho_max)
 
     return StructuredSolution(x=x, y_hull=yh, y_term=yt, r_prim=r_prim, r_dual=r_dual,

@@ -35,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from ft_mpc_torch.solvers.lanes_riccati import lqr_resolve_lanes, prepare_resolve
+from ft_mpc_torch.solvers.mpc_qp import elastic_gap, hinge_prox, rho_factor
 from ft_mpc_torch.solvers.riccati import (
     LQRProblem,
     lqr_factor,
@@ -211,10 +212,7 @@ def _solve_batched(qp: StagewiseMPCQP, cfg: StagewiseConfig, y_hull0, y_term0, r
                 zh = torch.minimum(zh_hat + yh / rho3, qp.h_hull)
                 vt_z = zt_hat + yt / rho2
                 if y_max > 0:
-                    # exact hinge-penalty prox: consensus converges on
-                    # infeasible rows, the dual saturates at y_max
-                    zt = torch.where(vt_z > qp.h_term + soft_t, vt_z - soft_t,
-                                     torch.minimum(vt_z, qp.h_term))
+                    zt = hinge_prox(vt_z, qp.h_term, soft_t)
                 else:
                     zt = torch.minimum(vt_z, qp.h_term)
                 yh = yh + rho3 * (zh_hat - zh)
@@ -225,27 +223,20 @@ def _solve_batched(qp: StagewiseMPCQP, cfg: StagewiseConfig, y_hull0, y_term0, r
                     zb_hat = alpha * Gb_t + (1 - alpha) * zb
                     vb_z = zb_hat + yb / rho3
                     if y_max > 0:
-                        zb = torch.where(vb_z > h_box + soft_b, vb_z - soft_b,
-                                         torch.minimum(vb_z, h_box))
+                        zb = hinge_prox(vb_z, h_box, soft_b)
                     else:
                         zb = torch.minimum(vb_z, h_box)
                     yb = yb + rho3 * (zb_hat - zb)
                     if y_max > 0:
                         yb = torch.clamp(yb, 0.0, y_max)
 
-        # scaled-residual rho adaptation; the consensus residual is honest
-        # on elastic rows, the restoration gap is reported for
-        # dual-saturated rows
+        # residuals and the rho rule of mpc_qp.solve_mpc_qp
         Gh, Gt, Gb = Gx(dX, dU)
         if y_max > 0:
-            over = torch.clamp(Gt - qp.h_term, min=0.0)
-            term_gap = torch.where(yt >= 0.999 * y_max, over, 0.0).amax(dim=1)
+            term_gap = elastic_gap(yt, Gt, qp.h_term, y_max, 1)
             if has_box:
-                over_b = torch.clamp(Gb - h_box, min=0.0)
-                term_gap = torch.maximum(
-                    term_gap,
-                    torch.where(yb >= 0.999 * y_max, over_b, 0.0).amax(dim=(1, 2)),
-                )
+                term_gap = torch.maximum(term_gap,
+                                         elastic_gap(yb, Gb, h_box, y_max, (1, 2)))
         else:
             term_gap = torch.zeros(B, **kw)
         r_prim = torch.maximum(_amax(Gh - zh, (1, 2)), _amax(Gt - zt, 1))
@@ -253,14 +244,8 @@ def _solve_batched(qp: StagewiseMPCQP, cfg: StagewiseConfig, y_hull0, y_term0, r
             r_prim = torch.maximum(r_prim, _amax(Gb - zb, (1, 2)))
         dURu2 = 2.0 * (dU @ qp.Ru)
         r_dual = _amax(dURu2 + gu2 + yh @ hull_A, (1, 2))
-        prim_scale = torch.clamp(
-            torch.maximum(_amax(Gh, (1, 2)), _amax(zh, (1, 2))), min=1e-6)
-        dual_scale = torch.clamp(_amax(dURu2, (1, 2)), min=1e-6)
-        ratio = (r_prim / prim_scale) / torch.clamp(r_dual / dual_scale, min=1e-12)
-        factor = torch.clamp(torch.sqrt(ratio), 1.0 / cfg.adapt_clip, cfg.adapt_clip)
-        # freeze once converged: the ratio is noise there and a carried rho
-        # would random-walk
-        factor = torch.where(r_prim <= 1e-4, 1.0, factor)
+        prim_scale = torch.maximum(_amax(Gh, (1, 2)), _amax(zh, (1, 2)))
+        factor = rho_factor(r_prim, prim_scale, r_dual, _amax(dURu2, (1, 2)), cfg.adapt_clip)
         rho = torch.clamp(rho * factor, cfg.rho_min, cfg.rho_max)
 
     return StagewiseSolution(dX=dX, dU=dU, y_hull=yh, y_term=yt, rho=rho,

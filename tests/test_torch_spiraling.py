@@ -25,6 +25,7 @@ from ft_mpc_torch.ops.dynamics import robot_to_center as t_robot_to_center
 from ft_mpc_torch.solvers import lanes_alloc as tla
 from ft_mpc_torch.solvers import lanes_condense as tlc
 from ft_mpc_torch.solvers import lanes_qp as tlq
+from ft_mpc_torch.solvers import mpc_qp_stagewise as tsw
 from ft_mpc_torch.solvers.mpc_qp import StructuredADMMConfig as TCfg
 from ft_mpc_torch.utils import trajectory as ttraj
 from ft_mpc_tpu.controllers import spiraling as jsp
@@ -189,6 +190,56 @@ def test_controller_module_matches_functions():
     _, ref, _ = _run_torch(s, tcfg, x_ref, u_ref)
     np.testing.assert_array_equal(np_(out.u_phys), np_(ref.u_phys))
     assert {n for n, _ in ctrl.named_buffers()} >= {"bank_0", "params_0", "weights_0"}
+
+
+@pytest.mark.parametrize("backend", ["condensed", "stagewise"])
+def test_cleanup_resolves_only_the_ranked_rows(backend):
+    """The worst-K cleanup at B=8, K=2: the rows it does not rank are those
+    of a run without it, bit for bit; the two it ranks (on r_prim + du_norm
+    + defect of that run) carry one SQP iteration of the backend's own scan
+    at the cleanup's budget from their duals and rho, with an exact metric
+    where the backend has one."""
+    rows, K = ROWS + [5, 8], 2
+    bank, params = torch_bank(load_flat(rows)), TBodyParams.default(0.1, dtype=F64, device="cpu")
+    weights = tsp.MPCWeights.from_diagonals(Q, R, dtype=F64, device="cpu")
+    admm = TCfg(iters=30, phases=1, rho=50.0, adapt_clip=1.5)
+    stagewise = tsw.StagewiseConfig(iters=20, phases=1, mode="lanes")
+    cfg = tsp.MPCConfig(horizon=NT, sqp_iters=2, qp_backend=backend, admm=admm,
+                        stagewise=stagewise, newton_iters=3, cleanup_iters=40, cleanup_k=K,
+                        cleanup_phases=2)
+    x_ref, u_ref = (t64(a) for a in _refs())
+    c0 = t_robot_to_center(bank.r, t64(gentle_states(len(rows))))
+    warm = tsp.init_warmstart_batch(params, bank, weights, cfg, c0, x_ref, u_ref)
+    solve = tsp.sqp_solve_batch if backend == "condensed" else tsp.sqp_solve_batch_stagewise
+    args = (params, bank, weights)
+    got_w, got_i = solve(*args, cfg, c0, x_ref, u_ref, warm)
+    ref_w, ref_i = solve(*args, cfg._replace(cleanup_rounds=0), c0, x_ref, u_ref, warm)
+
+    _, idx = torch.topk(ref_i.r_prim + ref_i.du_norm + ref_i.defect, K)
+    rest = torch.ones(len(rows), dtype=torch.bool)
+    rest[idx] = False
+    for name, a, b in zip(got_w._fields + got_i._fields, got_w + got_i, ref_w + ref_i):
+        if a is None:
+            assert b is None and name == "kinv" and backend == "stagewise"
+            continue
+        assert torch.equal(a[rest], b[rest]), name
+
+    budget = dict(iters=40, phases=2, adapt_clip=5.0)
+    ccfg = cfg._replace(sqp_iters=1, cleanup_iters=0, admm=admm._replace(**budget),
+                        stagewise=stagewise._replace(**budget))
+    sub = (tsp._params_row(params, tsp.params_batch_axes(params), idx),
+           tsp.take_rows(bank, idx), weights, ccfg, c0[idx], x_ref, u_ref,
+           tsp._rows(ref_w._replace(kinv=None), idx))
+    if backend == "condensed":
+        want_w, want_i = tsp._sqp_scan(*sub, qp_step=tsp._qp_condensed_lanes)
+        # an exact metric, refactored at each phase's rho: the last one's
+        assert not torch.equal(got_w.kinv[idx], ref_w.kinv[idx])
+    else:
+        want_w, want_i = tsp._sqp_batch_stagewise_core(*sub)
+    for name, a, b in zip(want_w._fields + want_i._fields, got_w + got_i, want_w + want_i):
+        if b is not None and name != "cost":
+            assert torch.equal(a[idx], b), name
+    assert not torch.equal(got_w.U[idx], ref_w.U[idx])
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

@@ -102,6 +102,8 @@ def test_spans_nest_into_one_period_a_step(recorder, backend):
         assert "ft_mpc.kinv_exact" in setup and STEP not in setup
     for p in periods:
         assert p.count(STEP) == 1 and p.count(SHIFT) == 1 and p.count("ft_mpc.wrench") == 1
+        # every line search in its span: sqp_iters (2) + cleanup_rounds (1)
+        assert p.count("ft_mpc.line_search") == 2 + 1
         roots = p.host_ns(STEP) + p.host_ns(SHIFT)
         assert sum(s[2] for s in p.spans.values()) == roots
         assert all(0 <= p.self_ns(n) <= p.host_ns(n) for n in p.spans)
